@@ -18,7 +18,16 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               batch went through the fused kernel
 5. parity   — chunk 0 against the port's CPU path, and a rerun of the first
               15,000 cells bit for bit
-6. report   — the card line, a JSON line of kernel numbers, then
+6. gene kernels — the gene projection kernel against its plain version at
+              16384 cells × 1793 windows (→ 19,910 gene columns), gated and
+              ungated, and on the synthetic genome; CUDA-event times
+7. selects  — the weighted median kernel at 16384 × 1991 (the bench plan's
+              genes per coverage group as weights, odd and even totals) and
+              the k-th smallest kernel at 16384 × 1793, bit for bit; times
+8. gene e2e — ``tl.infercnv(calculate_gene_values=True)`` on a 30,000 ×
+              20,000 CSR: every batch through the gene kernel, ``X_cnv`` bit
+              for bit as without the option, chunk 0 against the CPU path
+9. report   — the card line, a JSON line of kernel numbers, then
               ``{"ok": true, "device": {...}}`` as the last line
 
 It imports nothing of JAX and nothing of ``infercnvpy_tpu``.
@@ -39,6 +48,9 @@ DENSITY = 0.05
 N_NORMAL = 4_000
 KERNEL_ROWS = 16_384
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
+K3_RTOL, K3_ATOL = 1e-5, 1e-6
+GENE_CELLS = 30_000
+BATCH = 15_000
 
 
 def log(msg: str) -> None:
@@ -233,8 +245,6 @@ def phase_e2e() -> dict:
 
     import infercnvpy_tpu_torch as tcnv
     from infercnvpy_tpu_torch.genome import build_window_plan
-    from infercnvpy_tpu_torch.ops.fused import fused_center_smooth_median_cuda
-    from infercnvpy_tpu_torch.ops.select import row_median_cuda
     from infercnvpy_tpu_torch.tl._infercnv import _get_reference, _infercnv_compute
 
     t = time.perf_counter()
@@ -253,13 +263,12 @@ def phase_e2e() -> dict:
     tcnv.tl.infercnv(adata, reference_key="cell_type", reference_cat=cats)  # warm-up (allocator, caches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_center_smooth_median_cuda.launches = 0
-    row_median_cuda.launches = 0
+    _reset_counts()
     t = time.perf_counter()
     tcnv.tl.infercnv(adata, reference_key="cell_type", reference_cat=cats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {"fused_window": fused_center_smooth_median_cuda.launches, "row_median": row_median_cuda.launches}
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
 
     res = adata.obsm["X_cnv"]
@@ -312,6 +321,262 @@ def phase_parity(adata, reference) -> None:
     log(f"rerun of the first 15000 cells: bit-identical CSR (nnz {first.nnz:,})")
 
 
+def _k3_case(plan, rows: int, seed: int) -> dict:
+    """K3 vs its plain version on the same CUDA tensors, gated and ungated."""
+    import torch
+
+    from infercnvpy_tpu_torch.ops.gene import gene_project_cuda, gene_project_plain, gene_projection_data
+
+    gpd = gene_projection_data(plan)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, plan.n_windows), dtype=np.float32)).cuda()
+    thr = torch.from_numpy(rng.uniform(0.0, 1.0, rows).astype(np.float32)).cuda()
+    errs = {}
+    for gate in (False, True):
+        got = gene_project_cuda(x, thr, gpd, gate=gate)
+        want = gene_project_plain(x, thr, gpd, gate=gate)
+        torch.cuda.synchronize()
+        assert got.shape == (rows, gpd.total), got.shape
+        if gate:
+            # count in integers: a float32 mean over 3e8 entries cannot reach 1.0
+            agree = 1.0 - int(((got == 0) != (want == 0)).sum()) / got.numel()
+            if agree < 0.9999:
+                raise AssertionError(f"K3 gated pattern agrees on only {agree:.6%} of entries")
+            both = (got != 0) & (want != 0)
+            torch.testing.assert_close(got[both], want[both], rtol=K3_RTOL, atol=K3_ATOL)
+            errs["gated"] = float((got[both] - want[both]).abs().max()) if bool(both.any()) else 0.0
+            errs["gate_agreement"] = agree
+        else:
+            torch.testing.assert_close(got, want, rtol=K3_RTOL, atol=K3_ATOL)
+            errs["ungated"] = float((got - want).abs().max())
+        del got, want
+    return {"x": x, "thr": thr, "gpd": gpd, **errs}
+
+
+def phase_gene_kernels() -> dict:
+    import torch
+
+    from infercnvpy_tpu_torch.datasets import synthetic_cnv_dataset
+    from infercnvpy_tpu_torch.genome import build_window_plan
+    from infercnvpy_tpu_torch.ops.gene import gene_project_cuda, gene_project_plain
+
+    plan = build_window_plan(make_var(N_GENES), 100, 10)
+    bench = _k3_case(plan, KERNEL_ROWS, seed=3)
+    gpd = bench["gpd"]
+    assert (plan.n_windows, gpd.total, gpd.n_groups, int((gpd.g_hi - gpd.g_lo).max()) + 1) == (1793, 19910, 1991, 10)
+    log(f"K3 gene_project {KERNEL_ROWS}x{plan.n_windows} -> {gpd.total} genes ({gpd.n_groups} groups): "
+        f"ungated max |kernel - plain| = {bench['ungated']:.3e} (bar rtol {K3_RTOL}, atol {K3_ATOL}); gated: "
+        f"pattern agreement {bench['gate_agreement']:.6%}, max |diff| where both nonzero {bench['gated']:.3e}")
+    x, thr = bench["x"], bench["thr"]
+    ms = cuda_ms(lambda: gene_project_cuda(x, thr, gpd, gate=True))
+    plain_ms = cuda_ms(lambda: gene_project_plain(x, thr, gpd, gate=True))
+    out_gb = KERNEL_ROWS * gpd.total * 4 / 1e9
+    log(f"K3 time (gated): kernel {ms:.3f} ms ({out_gb / ms:.3f} TB/s of output), plain {plain_ms:.3f} ms "
+        f"(median of 5, CUDA events)")
+    err = max(bench["ungated"], bench["gated"])
+    del bench, x, thr
+
+    var = synthetic_cnv_dataset(n_cells=8, n_genes=4000, seed=0).var
+    var = var[~var["chromosome"].isin(["chrX", "chrY"])]
+    splan = build_window_plan(var, 100, 10)
+    syn = _k3_case(splan, KERNEL_ROWS, seed=4)
+    assert (splan.n_windows, syn["gpd"].total, syn["gpd"].n_groups) == (180, 3658, 290)
+    x, thr, sgpd = syn["x"], syn["thr"], syn["gpd"]
+    syn_ms = cuda_ms(lambda: gene_project_cuda(x, thr, sgpd, gate=True))
+    syn_plain_ms = cuda_ms(lambda: gene_project_plain(x, thr, sgpd, gate=True))
+    log(f"K3 synthetic genome ({splan.n_windows} windows -> {sgpd.total} genes): ungated max |kernel - plain| "
+        f"= {syn['ungated']:.3e}; gated agreement {syn['gate_agreement']:.6%}, max |diff| {syn['gated']:.3e}; "
+        f"kernel {syn_ms:.3f} ms, plain {syn_plain_ms:.3f} ms")
+    err = max(err, syn["ungated"], syn["gated"])
+    del syn, x, thr
+    torch.cuda.empty_cache()
+    return {
+        "name": "gene_project", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/gene_project.cu",
+        "replaces": "infercnvpy_tpu/ops/pallas_gene.py:127", "launches": None,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_synthetic": syn_ms,
+        "plain_ms_synthetic": syn_plain_ms,
+    }
+
+
+def _bit_identical(got, want, what: str) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"{what}: {bad} rows differ from the plain version")
+
+
+def phase_select_kernels() -> list[dict]:
+    import torch
+
+    from infercnvpy_tpu_torch.genome import build_window_plan
+    from infercnvpy_tpu_torch.ops.gene import gene_projection_data
+    from infercnvpy_tpu_torch.ops.select import (
+        row_kth_smallest_cuda,
+        row_kth_smallest_plain,
+        row_median_weighted_cuda,
+        row_median_weighted_plain,
+    )
+
+    gpd = gene_projection_data(build_window_plan(make_var(N_GENES), 100, 10))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, gpd.n_groups), dtype=np.float32)).cuda()
+    # eighths: many equal keys, so the even total's lower middle is often the same key
+    ties = torch.round(x * 8) / 8
+    odd_w = gpd.g_counts.copy()
+    odd_w[0] += 1
+    k4 = {}
+    for label, wts in (("even", gpd.g_counts), ("odd", odd_w)):
+        wd = torch.from_numpy(wts).cuda()
+        for vals in (x, ties):
+            _bit_identical(row_median_weighted_cuda(vals, wd), row_median_weighted_plain(vals, wd),
+                           f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), {label} total {int(wts.sum())}")
+        k4[label] = (int(wts.sum()), cuda_ms(lambda: row_median_weighted_cuda(x, wd)),
+                     cuda_ms(lambda: row_median_weighted_plain(x, wd)))
+        log(f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), total {k4[label][0]}: bit-identical "
+            f"(continuous and tied values); kernel {k4[label][1]:.3f} ms, plain {k4[label][2]:.3f} ms")
+    del x, ties
+
+    w = 1793
+    x = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, w), dtype=np.float32)).cuda()
+    k5 = {}
+    for k in (0, w // 2, w - 1):
+        _bit_identical(row_kth_smallest_cuda(x, k), row_kth_smallest_plain(x, k),
+                       f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}")
+        k5[k] = (cuda_ms(lambda: row_kth_smallest_cuda(x, k)), cuda_ms(lambda: row_kth_smallest_plain(x, k)))
+        log(f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}: bit-identical; kernel {k5[k][0]:.3f} ms, "
+            f"plain {k5[k][1]:.3f} ms")
+    del x
+    return [
+        {
+            "name": "row_median_weighted", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",
+            "replaces": "infercnvpy_tpu/ops/pallas_select.py:154", "launches": None, "max_abs_err": 0.0,
+            "ms": k4["even"][1], "plain_ms": k4["even"][2], "ms_odd_total": k4["odd"][1],
+            "plain_ms_odd_total": k4["odd"][2],
+        },
+        {
+            "name": "row_kth_smallest", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",
+            "replaces": "infercnvpy_tpu/ops/pallas_select.py:137", "launches": None, "max_abs_err": 0.0,
+            "ms": k5[w // 2][0], "plain_ms": k5[w // 2][1],
+            "ms_by_k": {str(k): v[0] for k, v in k5.items()}, "plain_ms_by_k": {str(k): v[1] for k, v in k5.items()},
+        },
+    ]
+
+
+def _kernel_wrappers() -> dict:
+    """Each kernel's wrapper, by the name the report gives the kernel."""
+    from infercnvpy_tpu_torch.ops.fused import fused_center_smooth_median_cuda
+    from infercnvpy_tpu_torch.ops.gene import gene_project_cuda
+    from infercnvpy_tpu_torch.ops.select import row_kth_smallest_cuda, row_median_cuda, row_median_weighted_cuda
+
+    return {
+        "fused_window": fused_center_smooth_median_cuda, "gene_project": gene_project_cuda,
+        "row_median": row_median_cuda, "row_median_weighted": row_median_weighted_cuda,
+        "row_kth_smallest": row_kth_smallest_cuda,
+    }
+
+
+def _reset_counts() -> None:
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
+def phase_gene_e2e() -> dict:
+    import pandas as pd
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch.genome import build_window_plan
+    from infercnvpy_tpu_torch.ops.gene import gene_projection_data
+    from infercnvpy_tpu_torch.tl._infercnv import _get_reference, _infercnv_compute, _reindex_genes
+
+    t = time.perf_counter()
+    var = make_var(N_GENES)
+    expr = make_csr(GENE_CELLS, N_GENES, DENSITY)
+    labels = np.array(["tumor"] * GENE_CELLS, dtype=object)
+    labels[: N_NORMAL // 2] = "normal_a"
+    labels[N_NORMAL // 2 : N_NORMAL] = "normal_b"
+    obs = pd.DataFrame({"cell_type": pd.Categorical(labels)}, index=[f"cell_{i}" for i in range(GENE_CELLS)])
+    adata = tcnv.AnnData(X=expr, obs=obs, var=var)
+    cats = ["normal_a", "normal_b"]
+    log(f"gene e2e input: {GENE_CELLS} x {N_GENES} CSR, nnz {expr.nnz:,}, made in {time.perf_counter() - t:.1f}s")
+
+    plan = build_window_plan(var, 100, 10)
+    gpd = gene_projection_data(plan)
+    kw = dict(reference_key="cell_type", reference_cat=cats)
+    tcnv.tl.infercnv(adata, calculate_gene_values=True, **kw)  # warm-up (allocator, caches)
+    torch.cuda.synchronize()
+    # tl.infercnv subsets the whole AnnData to the kept genes, layers included:
+    # time that with the warm-up's layer present, then drop the layer so the
+    # timed run starts as a first call does
+    t = time.perf_counter()
+    adata[:, np.ones(N_GENES, bool)]
+    log(f"adata[:, keep] with a {GENE_CELLS} x {N_GENES} gene layer present: {time.perf_counter() - t:.3f}s")
+    del adata.layers["gene_values_cnv"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    tcnv.tl.infercnv(adata, calculate_gene_values=True, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_batches = -(-GENE_CELLS // BATCH)
+    if launches["gene_project"] != n_batches or launches["fused_window"] != n_batches:
+        raise AssertionError(f"{launches} for {n_batches} batches: every batch must run fused_window and gene_project")
+    genes = adata.layers["gene_values_cnv"]
+    assert genes.shape == (GENE_CELLS, N_GENES) and genes.dtype == np.float32, (genes.shape, genes.dtype)
+    covered = np.zeros(N_GENES, bool)
+    covered[plan.used_genes[gpd.covered_sorted]] = True
+    assert covered.sum() == gpd.total == 19910
+    if not (np.isnan(genes[:, ~covered]).all() and np.isfinite(genes[:, covered]).all()):
+        raise AssertionError("NaN columns of the gene matrix are not exactly the uncovered genes")
+    log(f"gene e2e tl.infercnv(calculate_gene_values=True): {wall:.3f}s wall, {GENE_CELLS / wall:,.0f} cells/s, "
+        f"layer {genes.shape} ({np.count_nonzero(genes[:, covered]) / (GENE_CELLS * gpd.total):.2%} nonzero), "
+        f"launches {launches}, peak device memory {peak / 2**30:.3f} GiB")
+
+    plain = tcnv.AnnData(X=expr, obs=obs, var=var)
+    tcnv.tl.infercnv(plain, **kw)
+    torch.cuda.synchronize()
+    if not _csr_equal(adata.obsm["X_cnv"], plain.obsm["X_cnv"]):
+        raise AssertionError("X_cnv with calculate_gene_values=True differs from the run without it")
+    log(f"X_cnv with gene values is bit-identical to the run without (nnz {plain.obsm['X_cnv'].nnz:,})")
+
+    reference = _get_reference(adata, "cell_type", cats, None, None)
+    sub = adata[:5000]
+    _, _, g = tcnv.tl.infercnv(sub, reference=reference, device="cuda", inplace=False, calculate_gene_values=True)
+    _, _, c = tcnv.tl.infercnv(sub, reference=reference, device="cpu", inplace=False, calculate_gene_values=True)
+    if not np.array_equal(np.isnan(g), np.isnan(c)):
+        raise AssertionError("chunk 0 gene values: NaN pattern differs between GPU and CPU")
+    g, c = g[:, covered], c[:, covered]
+    same_gate = float(((g != 0) == (c != 0)).mean())
+    both = (g != 0) & (c != 0)
+    err = float(np.abs(g[both] - c[both]).max()) if both.any() else 0.0
+    log(f"gene chunk 0 (5000 cells) GPU vs CPU: gate agrees on {same_gate:.6%} of entries, "
+        f"max |diff| where both nonzero {err:.3e}")
+    if same_gate < 0.9999:
+        raise AssertionError(f"gene gate pattern agrees on only {same_gate:.6%} of entries")
+    np.testing.assert_allclose(g[both], c[both], rtol=1e-4, atol=1e-5)
+    del g, c, sub, plain
+
+    stats: dict = {}
+    masked = var[["chromosome", "start", "end"]]
+    _, _, per_gene = _infercnv_compute(
+        expr, masked, reference, lfc_clip=3, window_size=100, step=10, dynamic_threshold=1.5, chunksize=5000,
+        batch_cells=None, dtype=None, device=torch.device("cuda"), stats=stats, progress=False,
+        calculate_gene_values=True,
+    )
+    _reindex_genes(per_gene, obs.index, masked.index, var.index, stats)
+    log("gene e2e stats run: " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v) for k, v in stats.items()}))
+    return {"launches": launches, "wall": wall}
+
+
 def main() -> int:
     import torch
 
@@ -320,14 +585,21 @@ def main() -> int:
     kernels = phase_kernels()
     e2e = phase_e2e()
     phase_parity(e2e["adata"], e2e["reference"])
-    on_path = []
-    off_path = []
-    for k in kernels:
-        k["launches"] = e2e["launches"][k["name"]]
-        (on_path if k["name"] == "fused_window" else off_path).append(k)
+    del e2e["adata"]
+    gene_kernel = phase_gene_kernels()
+    selects = phase_select_kernels()
+    gene_e2e = phase_gene_e2e()
+    # each path's kernels take their launches from that path's run
+    kernels[0]["launches"] = e2e["launches"]["fused_window"]
+    gene_kernel["launches"] = gene_e2e["launches"]["gene_project"]
+    on_path = [kernels[0], gene_kernel]
+    off_path = [kernels[1], *selects]
+    for k in off_path:
+        k["launches"] = e2e["launches"][k["name"]] + gene_e2e["launches"][k["name"]]
     print(smi)
-    # row_median is ported and checked, but the main path runs its select
-    # inside fused_window, so it is reported apart from the path's kernels
+    # row_median, row_median_weighted and row_kth_smallest are ported and
+    # checked, but the paths run their select inside fused_window and
+    # gene_project, so they are reported apart from the paths' kernels
     print(json.dumps({"kernels": on_path, "kernels_off_main_path": off_path}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

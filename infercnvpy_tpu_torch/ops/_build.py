@@ -26,7 +26,7 @@ __all__ = ["library", "check", "current_stream", "nvcc_path", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("select.cuh", "fused_window.cu", "row_median.cu")
+SOURCES = ("select.cuh", "fused_window.cu", "row_median.cu", "row_select.cu", "gene_project.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
@@ -39,6 +39,13 @@ _SIGNATURES = {
     # x, out, rows, width, stream
     "row_median_launch": (_P, _P, _I, _I, _P),
     "fused_window_max_smem": (),
+    # x, wts, out, rows, width, total, stream
+    "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _P),
+    # x, out, rows, width, k, stream
+    "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _P),
+    # x, thr, g_lo, g_hi, g_counts, gidx, out, rows, n_windows, n_groups, n_covered, gate, stream
+    "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "gene_project_max_smem": (),
 }
 
 _LIB = None

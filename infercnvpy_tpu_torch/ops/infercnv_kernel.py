@@ -36,7 +36,8 @@ from ..genome.plan import WindowPlan
 from .select import row_median_plain
 
 __all__ = [
-    "build_infercnv_fn", "center", "center_smooth_median", "chunk_gate", "pack_columns", "pack_csr",
+    "apply_gate", "build_infercnv_fn", "center", "center_smooth_median", "chunk_gate", "chunk_threshold",
+    "pack_columns", "pack_csr",
     "packed_width", "small_offsets", "smooth_packed",
 ]
 
@@ -165,6 +166,39 @@ def center_smooth_median(
     return smoothed - med[:, None], med
 
 
+def chunk_threshold(
+    row_sum: torch.Tensor,
+    row_sumsq: torch.Tensor,
+    chunk_ids: torch.Tensor,
+    num_chunks: int,
+    n_windows: int,
+    dynamic_threshold: float,
+) -> torch.Tensor:
+    """Step 5's threshold: ``dynamic_threshold × std(chunk)`` for every row, (cells,).
+
+    ``chunk_ids`` (cells,) must be sorted, with values in ``[0, num_chunks]``;
+    id ``num_chunks`` marks padding rows.  The per-chunk sums reduce segment by
+    segment in a fixed order (no atomics), so a rerun gives identical bits.
+    """
+    if chunk_ids.numel() > 1 and bool((chunk_ids[1:] < chunk_ids[:-1]).any()):
+        raise ValueError("chunk_ids must be sorted")
+    lengths = torch.bincount(chunk_ids.long(), minlength=num_chunks + 1)
+    if lengths.numel() != num_chunks + 1:
+        raise ValueError(f"chunk_ids must lie in [0, {num_chunks}]")
+    seg_sum = torch.segment_reduce(row_sum, "sum", lengths=lengths)
+    seg_sq = torch.segment_reduce(row_sumsq, "sum", lengths=lengths)
+    seg_n = (lengths * n_windows).to(row_sum.dtype).clamp_min(1)
+    mean = seg_sum / seg_n
+    var = (seg_sq / seg_n - mean * mean).clamp_min(0)
+    thr = dynamic_threshold * torch.sqrt(var)
+    return thr[chunk_ids.long()]
+
+
+def apply_gate(x: torch.Tensor, row_thr: torch.Tensor) -> torch.Tensor:
+    """Zero ``|x| < row_thr`` row by row."""
+    return torch.where(x.abs() < row_thr[:, None], torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+
 def chunk_gate(
     x_res: torch.Tensor,
     row_sum: torch.Tensor,
@@ -173,26 +207,9 @@ def chunk_gate(
     num_chunks: int,
     dynamic_threshold: float,
 ) -> torch.Tensor:
-    """Step 5: zero ``|x| < dynamic_threshold × std(chunk)``.
-
-    ``chunk_ids`` (cells,) must be sorted, with values in ``[0, num_chunks]``;
-    id ``num_chunks`` marks padding rows.  The per-chunk sums reduce segment by
-    segment in a fixed order (no atomics), so a rerun gives identical bits.
-    """
-    if chunk_ids.numel() > 1 and bool((chunk_ids[1:] < chunk_ids[:-1]).any()):
-        raise ValueError("chunk_ids must be sorted")
-    n_win = x_res.shape[1]
-    lengths = torch.bincount(chunk_ids.long(), minlength=num_chunks + 1)
-    if lengths.numel() != num_chunks + 1:
-        raise ValueError(f"chunk_ids must lie in [0, {num_chunks}]")
-    seg_sum = torch.segment_reduce(row_sum, "sum", lengths=lengths)
-    seg_sq = torch.segment_reduce(row_sumsq, "sum", lengths=lengths)
-    seg_n = (lengths * n_win).to(x_res.dtype).clamp_min(1)
-    mean = seg_sum / seg_n
-    var = (seg_sq / seg_n - mean * mean).clamp_min(0)
-    thr = dynamic_threshold * torch.sqrt(var)
-    row_thr = thr[chunk_ids.long()][:, None]
-    return torch.where(x_res.abs() < row_thr, torch.zeros((), dtype=x_res.dtype, device=x_res.device), x_res)
+    """Step 5: zero ``|x| < dynamic_threshold × std(chunk)`` (see :func:`chunk_threshold`)."""
+    row_thr = chunk_threshold(row_sum, row_sumsq, chunk_ids, num_chunks, x_res.shape[1], dynamic_threshold)
+    return apply_gate(x_res, row_thr)
 
 
 def build_infercnv_fn(
@@ -202,11 +219,12 @@ def build_infercnv_fn(
     lfc_clip: float,
     dynamic_threshold: float | None,
     num_chunks: int,
+    calculate_gene_values: bool = False,
     dtype: torch.dtype = torch.float32,
 ):
     """Build the end-to-end transform over PACKED input.
 
-    Returns ``fn(x_packed, ref_packed, chunk_ids) -> (x_res, None)``:
+    Returns ``fn(x_packed, ref_packed, chunk_ids) -> (x_res, gene_res)``:
 
     * ``x_packed``   — (cells, packed_width(plan)) dense packed expression
     * ``ref_packed`` — (n_ref_rows, packed_width(plan)) packed baseline(s)
@@ -217,14 +235,21 @@ def build_infercnv_fn(
 
     f32 goes through ``ops.fused.fused_center_smooth_median``: the CUDA kernel
     for a CUDA tensor, its plain version for a CPU tensor.  Every other dtype
-    takes the plain pipeline on the tensor's device.  The second output is the
-    per-gene matrix slot, always ``None`` in this port so far.
+    takes the plain pipeline on the tensor's device.
+
+    ``gene_res`` is ``None`` unless ``calculate_gene_values``; then it is the
+    (cells, n_covered) per-gene matrix of ``ops.gene.gene_project``, computed
+    from the median-centred windows before the gate and gated with the same
+    per-row threshold, its columns in ``gene_projection_data(plan).covered_sorted``
+    order.
     """
     from .fused import fused_center_smooth_median
+    from .gene import gene_project, gene_projection_data
 
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     n_ref = int(n_ref_rows)
+    gpd = gene_projection_data(plan) if calculate_gene_values else None
 
     def fn(x: torch.Tensor, ref: torch.Tensor, chunk_ids: torch.Tensor):
         x = x.to(dtype)
@@ -241,8 +266,14 @@ def build_infercnv_fn(
             x_res, _med = center_smooth_median(x, ref, plan, lfc_clip)
             rs = x_res.sum(dim=1)
             rsq = (x_res * x_res).sum(dim=1)
+        row_thr = None
         if dynamic_threshold is not None:
-            x_res = chunk_gate(x_res, rs, rsq, chunk_ids, num_chunks, float(dynamic_threshold))
-        return x_res, None
+            row_thr = chunk_threshold(rs, rsq, chunk_ids, num_chunks, plan.n_windows, float(dynamic_threshold))
+        gene_res = None
+        if gpd is not None:
+            gene_res = gene_project(x_res, row_thr, gpd, gate=row_thr is not None)
+        if row_thr is not None:
+            x_res = apply_gate(x_res, row_thr)
+        return x_res, gene_res
 
     return fn

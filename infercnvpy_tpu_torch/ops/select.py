@@ -1,6 +1,7 @@
-"""Exact per-row median (counterpart of ``infercnvpy_tpu/ops/pallas_select.py::row_median``).
+"""Exact per-row selects (counterpart of ``infercnvpy_tpu/ops/pallas_select.py``).
 
-The median has ``np.median`` semantics: for an even width it is the mean of
+``row_median``, ``row_median_weighted`` and ``row_kth_smallest``.  The
+medians have ``np.median`` semantics: for an even count they are the mean of
 the two middle values (``torch.median`` would return the lower one).
 
 Float ordering trick shared by both versions: for IEEE-754, mapping the
@@ -8,11 +9,15 @@ integer bit pattern ``i`` to ``key = i XOR (0x7FF..F AND (i >> bits-1))``
 makes signed-integer order match total float order (negatives have their
 lower bits flipped; -0 sorts just below +0).  The map is an involution.
 
-* :func:`row_median_plain` sorts the keys (any device, f32 or f64);
-* :func:`row_median_cuda` launches ``csrc/row_median.cu`` (f32, CUDA): one
-  block per row, bisection over the keys with block-wide counts — the same
-  ``__device__`` select routine as the fused kernel (``csrc/select.cuh``).
+* the ``*_plain`` versions sort the keys (any device, f32 or f64);
+* the ``*_cuda`` versions launch ``csrc/row_median.cu`` and
+  ``csrc/row_select.cu`` (f32, CUDA): one block per row, bisection over the
+  keys with block-wide (weighted) counts — the same ``__device__`` select
+  routine as the fused and gene kernels (``csrc/select.cuh``).
   Both return bit-identical results on the same input.
+
+Each dispatcher takes the kernel for a CUDA tensor (f32 only; anything else
+raises) and the plain version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -21,7 +26,12 @@ import torch
 
 from . import _build
 
-__all__ = ["row_median", "row_median_plain", "row_median_cuda", "float_key", "key_to_float"]
+__all__ = [
+    "row_median", "row_median_plain", "row_median_cuda",
+    "row_median_weighted", "row_median_weighted_plain", "row_median_weighted_cuda",
+    "row_kth_smallest", "row_kth_smallest_plain", "row_kth_smallest_cuda",
+    "float_key", "key_to_float",
+]
 
 _INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
 
@@ -56,11 +66,15 @@ def row_median_plain(x: torch.Tensor) -> torch.Tensor:
     return (lo + hi) / 2
 
 
+def _check_cuda_f32(x: torch.Tensor, name: str) -> torch.Tensor:
+    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"{name} takes a 2-D float32 CUDA tensor, got {x.dtype} on {x.device}")
+    return x.contiguous()
+
+
 def row_median_cuda(x: torch.Tensor) -> torch.Tensor:
     """Exact per-row median of a 2-D f32 CUDA tensor (kernel ``row_median.cu``)."""
-    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
-        raise ValueError(f"row_median_cuda takes a 2-D float32 CUDA tensor, got {x.dtype} on {x.device}")
-    x = x.contiguous()
+    x = _check_cuda_f32(x, "row_median_cuda")
     n, w = x.shape
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0 or w == 0:
@@ -84,3 +98,113 @@ def row_median(x: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return row_median_cuda(x)
     return row_median_plain(x)
+
+
+def _weights(weights, w: int, device) -> tuple[torch.Tensor, int]:
+    """``(int64 weights on device, total)``; raises on a bad shape or a negative weight."""
+    wts = torch.as_tensor(weights).to(device=device, dtype=torch.int64)
+    if tuple(wts.shape) != (w,):
+        raise ValueError(f"weights must have shape ({w},), got {tuple(wts.shape)}")
+    if bool((wts < 0).any()):
+        raise ValueError("weights must be >= 0")
+    return wts, int(wts.sum())
+
+
+def row_median_weighted_plain(x: torch.Tensor, weights) -> torch.Tensor:
+    """Exact per-row ``np.median(np.repeat(row, weights))`` of a 2-D f32/f64 tensor.
+
+    ``weights`` — (w,) non-negative integers; a zero weight drops its column.
+    A weight total of 0, or no rows, gives zeros.  Sorts the float keys and
+    finds ranks ``total // 2`` (and the one below it for an even total) in the
+    running weight sum.
+    """
+    n, w = x.shape
+    wts, total = _weights(weights, w, x.device)
+    if n == 0 or total == 0:
+        return torch.zeros((n,), dtype=x.dtype, device=x.device)
+    keys, order = torch.sort(float_key(x), dim=1)
+    cum = torch.cumsum(wts[order], dim=1)
+
+    def rank(r: int) -> torch.Tensor:
+        # first sorted position whose running weight exceeds r: it has weight > 0
+        target = torch.full((n, 1), r + 1, dtype=cum.dtype, device=x.device)
+        pos = torch.searchsorted(cum, target)
+        return key_to_float(keys.gather(1, pos)[:, 0], x.dtype)
+
+    k_hi = total // 2
+    hi = rank(k_hi)
+    if total % 2 == 1:
+        return hi
+    return (rank(k_hi - 1) + hi) / 2
+
+
+def row_median_weighted_cuda(x: torch.Tensor, weights) -> torch.Tensor:
+    """Exact per-row weighted median of a 2-D f32 CUDA tensor (kernel ``row_select.cu``)."""
+    x = _check_cuda_f32(x, "row_median_weighted_cuda")
+    n, w = x.shape
+    wts, total = _weights(weights, w, x.device)
+    if total > torch.iinfo(torch.int32).max:
+        raise ValueError(f"weight total {total} does not fit the kernel's int32 counts")
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0 or total == 0:
+        return out.zero_()
+    wts = wts.to(torch.int32)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.row_median_weighted_launch(
+            x.data_ptr(), wts.data_ptr(), out.data_ptr(), n, w, total, _build.current_stream(x.device)
+        )
+    _build.check(err, "row_median_weighted")
+    row_median_weighted_cuda.launches += 1
+    return out
+
+
+row_median_weighted_cuda.launches = 0
+
+
+def row_median_weighted(x: torch.Tensor, weights) -> torch.Tensor:
+    """Exact per-row ``np.median(np.repeat(row, weights))``: the kernel on CUDA, the plain sort on the CPU."""
+    if x.is_cuda:
+        return row_median_weighted_cuda(x, weights)
+    return row_median_weighted_plain(x, weights)
+
+
+def _check_k(k: int, w: int) -> int:
+    k = int(k)
+    if not 0 <= k < w:
+        raise ValueError(f"k={k} is outside [0, {w}): a row of {w} values has no such element")
+    return k
+
+
+def row_kth_smallest_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact per-row k-th smallest (0-based) of a 2-D f32/f64 tensor by sorting the float keys."""
+    n, w = x.shape
+    k = _check_k(k, w)
+    keys = torch.sort(float_key(x), dim=1).values
+    return key_to_float(keys[:, k], x.dtype)
+
+
+def row_kth_smallest_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact per-row k-th smallest of a 2-D f32 CUDA tensor (kernel ``row_select.cu``)."""
+    x = _check_cuda_f32(x, "row_kth_smallest_cuda")
+    n, w = x.shape
+    k = _check_k(k, w)
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        err = lib.row_kth_smallest_launch(x.data_ptr(), out.data_ptr(), n, w, k, _build.current_stream(x.device))
+    _build.check(err, "row_kth_smallest")
+    row_kth_smallest_cuda.launches += 1
+    return out
+
+
+row_kth_smallest_cuda.launches = 0
+
+
+def row_kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact per-row k-th smallest (0-based): the kernel on CUDA, the plain sort on the CPU."""
+    if x.is_cuda:
+        return row_kth_smallest_cuda(x, k)
+    return row_kth_smallest_plain(x, k)

@@ -11,7 +11,11 @@ API and numerics contract follow the reference entry point
   batching;
 * sparse input ships its CSR arrays and densifies on the device
   (``device_densify``); the gated result comes back as a bitmask plus the
-  surviving values (``compress_results``).
+  surviving values (``compress_results``);
+* ``calculate_gene_values=True`` adds the per-gene matrix
+  (``ops.gene.gene_project``, on a CUDA device in f32 through the gene
+  kernel), fetched the same way and scattered back to the var axis with NaN
+  for genes no window covers.
 
 Batches run one after another; the JAX package's prefetch thread and
 executable cache have no counterpart yet (ROADMAP.md, "pipelined copy
@@ -30,6 +34,7 @@ import torch
 
 from .._util import _ensure_array, info, warn
 from ..genome.plan import build_window_plan
+from ..ops.gene import gene_projection_data
 from ..ops.infercnv_kernel import _pack_lut, build_infercnv_fn, pack_columns, pack_csr, packed_width
 
 __all__ = ["infercnv"]
@@ -99,8 +104,13 @@ def infercnv(
         enables it whenever the noise gate is on; ``False`` forces the dense
         fetch.
 
-    ``calculate_gene_values=True``, ``checkpoint_dir``, ``transfer_dtype`` and
-    more than one device are not ported yet and raise ``NotImplementedError``.
+    With ``calculate_gene_values=True`` the per-gene values go to
+    ``layers[f"gene_values_{key_added}"]`` (or are returned third with
+    ``inplace=False``): cells × all var genes, NaN for genes without a
+    position, on excluded chromosomes, or covered by no window.
+
+    ``checkpoint_dir``, ``transfer_dtype`` and more than one device are not
+    ported yet and raise ``NotImplementedError``.
     """
     del n_jobs
     # validation: messages are observable API surface (reference tl/_infercnv.py:95-105)
@@ -112,8 +122,6 @@ def infercnv(
         raise ValueError(
             "Genomic positions not found. There need to be `chromosome`, `start`, and `end` columns in `adata.var`. "
         )
-    if calculate_gene_values:
-        raise _not_ported("calculate_gene_values=True", "gene values")
     if checkpoint_dir is not None:
         raise _not_ported("checkpoint_dir", "checkpoint/resume")
     if transfer_dtype is not None:
@@ -138,7 +146,7 @@ def infercnv(
         expr = expr.tocsr()
     var = sub.var.loc[:, ["chromosome", "start", "end"]]
 
-    chr_pos, res = _infercnv_compute(
+    chr_pos, res, per_gene = _infercnv_compute(
         expr,
         var,
         np.asarray(reference, dtype=np.float64),
@@ -153,13 +161,32 @@ def infercnv(
         device_densify=device_densify,
         progress=progress,
         compress_results=compress_results,
+        calculate_gene_values=calculate_gene_values,
     )
+    if calculate_gene_values:
+        per_gene = _reindex_genes(per_gene, adata.obs.index, var.index, adata.var_names)
 
     if inplace:
         adata.obsm[f"X_{key_added}"] = res
         adata.uns[key_added] = {"chr_pos": chr_pos}
+        if calculate_gene_values:
+            adata.layers[f"gene_values_{key_added}"] = per_gene
         return None
-    return chr_pos, res, None
+    return chr_pos, res, per_gene
+
+
+def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, stats: dict | None = None) -> np.ndarray:
+    """Masked-var-axis gene values -> all of ``var_names``, NaN for the genes left out.
+
+    As the JAX package does it (``infercnvpy_tpu/tl/_infercnv.py:161-166``):
+    through a pandas reindex.  ``stats`` receives ``gene_reindex_sec``.
+    """
+    t0 = time.perf_counter()
+    df = pd.DataFrame(per_gene, index=obs_names, columns=masked_names)
+    out = df.reindex(columns=var_names, fill_value=np.nan).values
+    if stats is not None:
+        stats["gene_reindex_sec"] = stats.get("gene_reindex_sec", 0.0) + (time.perf_counter() - t0)
+    return out
 
 
 def _pick_device(device) -> torch.device:
@@ -207,13 +234,19 @@ def _infercnv_compute(
     stats: dict | None = None,
     progress=False,
     compress_results=None,
+    calculate_gene_values: bool = False,
 ):
-    """Run the full pipeline; returns ``(chr_pos, csr result)``.
+    """Run the full pipeline; returns ``(chr_pos, csr result, per-gene matrix or None)``.
+
+    The per-gene matrix is (cells, masked genes), NaN for uncovered genes.
 
     ``stats`` (optional) — a dict that receives a per-stage breakdown:
     ``host_pack_sec``, ``h2d_sec``, ``h2d_bytes``, ``compute_sec``,
-    ``d2h_sec``, ``d2h_bytes``, ``csr_sec``, ``compile_sec`` (building and
-    loading the CUDA kernels), ``mode`` and ``result_pack``.  Collecting it
+    ``d2h_sec``, ``d2h_bytes`` (the window matrix), ``csr_sec``,
+    ``compile_sec`` (building and loading the CUDA kernels), ``mode`` and
+    ``result_pack``; with gene values also ``gene_d2h_bytes`` (inside
+    ``d2h_sec``), ``gene_unpack_sec`` (bitmask to dense on the host) and
+    ``gene_scatter_sec`` (to the masked var axis).  Collecting it
     synchronises the device between stages.
     """
     if sp.issparse(expr):
@@ -272,8 +305,10 @@ def _infercnv_compute(
         lfc_clip=lfc_clip,
         dynamic_threshold=dynamic_threshold,
         num_chunks=num_chunks,
+        calculate_gene_values=calculate_gene_values,
         dtype=cdtype,
     )
+    gpd = gene_projection_data(plan) if calculate_gene_values else None
 
     # host-side packing: genes land in the plan's packed layout during
     # densification, so the device never gathers the permutation
@@ -294,42 +329,46 @@ def _infercnv_compute(
     def _h2d(arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
-    pack_cap = 0
+    # one capacity per matrix: the gene matrix's nnz must not size the window fetch
+    pack_caps = {"x": 0, "gene": 0}
 
-    def _try_pack(arr: torch.Tensor, rows: int):
+    def _try_pack(arr: torch.Tensor, cap_key: str, rows: int):
         """``("packed", mask, vals, nnz)`` on the device, or None when the
         dense fetch would ship no more bytes."""
-        nonlocal pack_cap
         from ..ops.result_pack import compact, mask_nnz, round_result_cap
 
         mask, nnz = mask_nnz(arr, rows)
-        pack_cap = max(pack_cap, round_result_cap(nnz))
-        if mask.numel() * mask.element_size() + pack_cap * arr.element_size() >= arr.numel() * arr.element_size():
+        pack_caps[cap_key] = max(pack_caps[cap_key], round_result_cap(nnz))
+        cap = pack_caps[cap_key]
+        if mask.numel() * mask.element_size() + cap * arr.element_size() >= arr.numel() * arr.element_size():
             return None
-        return ("packed", mask, compact(arr, rows, pack_cap), nnz)
+        return ("packed", mask, compact(arr, rows, cap), nnz)
 
-    def _fetch_csr(payload, rows: int) -> sp.csr_matrix:
+    def _payload(arr: torch.Tensor, cap_key: str, rows: int):
+        return (_try_pack(arr, cap_key, rows) if use_result_pack else None) or ("dense", arr)
+
+    def _fetch(payload, rows: int, bytes_key: str):
+        """Device payload -> host numpy buffers (dense payloads sliced to the real rows)."""
         t0 = _tick()
         if payload[0] == "packed":
             _, mask, vals, nnz = payload
-            mask_np = mask.cpu().numpy()
-            vals_np = vals.cpu().numpy()
-            n_bytes = mask_np.nbytes + vals_np.nbytes
+            host = ("packed", mask.cpu().numpy(), vals.cpu().numpy(), nnz)
+            n_bytes = host[1].nbytes + host[2].nbytes
         else:
-            dense_np = payload[1][:rows].cpu().numpy()
-            n_bytes = dense_np.nbytes
+            host = ("dense", payload[1][:rows].cpu().numpy())
+            n_bytes = host[1].nbytes
         if timing:
-            stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + n_bytes
+            stats[bytes_key] = stats.get(bytes_key, 0) + n_bytes
         _tock("d2h_sec", t0)
-        t0 = _tick()
-        if payload[0] == "packed":
+        return host
+
+    def _unpack_csr(host, n_cols: int) -> sp.csr_matrix:
+        if host[0] == "packed":
             from ..ops.result_pack import mask_vals_to_csr
 
-            mat = mask_vals_to_csr(mask_np.view(np.uint32), vals_np[:nnz], plan.n_windows)
-        else:
-            mat = sp.csr_matrix(dense_np)
-        _tock("csr_sec", t0)
-        return mat
+            _, mask_np, vals_np, nnz = host
+            return mask_vals_to_csr(mask_np.view(np.uint32), vals_np[:nnz], n_cols)
+        return sp.csr_matrix(host[1])
 
     t_run0 = time.perf_counter()
 
@@ -354,6 +393,7 @@ def _infercnv_compute(
             info(msg)
 
     res_parts = []
+    gene_parts = []
     for start in range(0, n_cells, batch_cells):
         stop = min(start + batch_cells, n_cells)
         raw = expr[start:stop]
@@ -392,15 +432,34 @@ def _infercnv_compute(
             x_dev = densify(*dev_arrays, nnz, width, cdtype)
         else:
             x_dev = dev_arrays[0]
-        x_res, _ = fn(x_dev, ref_dev, chunk_dev)
-        payload = (_try_pack(x_res, rows) if use_result_pack else None) or ("dense", x_res)
+        x_res, gene_res = fn(x_dev, ref_dev, chunk_dev)
+        x_payload = _payload(x_res, "x", rows)
+        g_payload = _payload(gene_res, "gene", rows) if gpd is not None else None
         _tock("compute_sec", t0)
 
-        res_parts.append(_fetch_csr(payload, rows))
+        x_host = _fetch(x_payload, rows, "d2h_bytes")
+        g_host = _fetch(g_payload, rows, "gene_d2h_bytes") if g_payload is not None else None
+        t0 = _tick()
+        res_parts.append(_unpack_csr(x_host, plan.n_windows))
+        _tock("csr_sec", t0)
+        if g_host is not None:
+            t0 = _tick()
+            # per-gene values are consumed dense
+            gene_parts.append(g_host[1] if g_host[0] == "dense" else _unpack_csr(g_host, gpd.total).toarray())
+            _tock("gene_unpack_sec", t0)
         _progress(stop)
 
     res = sp.vstack(res_parts, format="csr") if len(res_parts) > 1 else res_parts[0]
-    return plan.chr_pos, res
+    per_gene = None
+    if gpd is not None:
+        t0 = _tick()
+        used = np.concatenate(gene_parts, axis=0) if len(gene_parts) > 1 else gene_parts[0]
+        # device gene columns are in coverage-group order; scatter them to the
+        # masked var axis (uncovered genes stay NaN, as in the reference's reindex)
+        per_gene = np.full((n_cells, n_genes), np.nan, dtype=used.dtype)
+        per_gene[:, plan.used_genes[gpd.covered_sorted]] = used
+        _tock("gene_scatter_sec", t0)
+    return plan.chr_pos, res, per_gene
 
 
 def _get_reference(

@@ -193,12 +193,11 @@ def test_validation_messages_identical(oligo, mutate, kw):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"calculate_gene_values": True}, "gene values"),
         ({"checkpoint_dir": "ckpt"}, "checkpoint/resume"),
         ({"transfer_dtype": "bfloat16"}, "transfer_dtype"),
         ({"device": ["cpu", "cpu"]}, "multi-device"),
     ],
-    ids=["gene_values", "checkpoint", "transfer_dtype", "multi_device"],
+    ids=["checkpoint", "transfer_dtype", "multi_device"],
 )
 def test_unported_options_raise(oligo, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
@@ -237,8 +236,123 @@ def test_stats_keys():
 
 def test_import_pulls_in_no_jax():
     code = (
-        "import sys, infercnvpy_tpu_torch, infercnvpy_tpu_torch.tl._infercnv, infercnvpy_tpu_torch.ops.fused; "
+        "import sys, infercnvpy_tpu_torch, infercnvpy_tpu_torch.tl._infercnv, infercnvpy_tpu_torch.ops.fused, "
+        "infercnvpy_tpu_torch.ops.gene; "
         "assert 'jax' not in sys.modules and 'infercnvpy_tpu' not in sys.modules, sorted(sys.modules)"
     )
     root = Path(__file__).resolve().parent.parent
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=300)
+
+
+# ---------------------------------------------------------------------------
+# calculate_gene_values=True
+# ---------------------------------------------------------------------------
+
+
+def _differential_adata(dtype=np.float64):
+    """The end-to-end case of tests/test_reference_differential.py:231-250: genes
+    without a position, chrX (excluded by default), small and regular chromosomes."""
+    rng = np.random.default_rng(23)
+    rows = []
+    for chrom, g in [("chr2", 180), ("chr1", 120), ("chrX", 40), ("chr9", 60)]:
+        rows += [(chrom, int(s), int(s) + 100) for s in np.sort(rng.integers(1, 10**7, size=g))]
+    var = pd.DataFrame(rows, columns=["chromosome", "start", "end"])
+    var.index = pd.Index([f"gene{i}" for i in range(len(var))])
+    var.iloc[10:14, var.columns.get_loc("chromosome")] = None
+    x = np.round(rng.normal(size=(33, len(var))) * 2, 3).astype(dtype)
+    cats = np.array(["tumor", "normal"])[rng.integers(0, 2, 33)]
+    obs = pd.DataFrame({"cell_type": pd.Categorical(cats)}, index=[f"c{i}" for i in range(33)])
+    return tcnv.AnnData(X=x, obs=obs, var=var)
+
+
+DIFF_KW = dict(reference_key="cell_type", reference_cat="normal", window_size=51, step=7, chunksize=13)
+
+
+def _assert_gene_f32_close(got, want, row_thr):
+    npt.assert_array_equal(np.isnan(got), np.isnan(want))
+    covered = ~np.isnan(want)
+    g, w = np.where(covered, got, 0), np.where(covered, want, 0)
+    flip = (g == 0) != (w == 0)
+    v = np.abs(np.where(g != 0, g, w))
+    near = np.abs(v - row_thr[:, None]) <= FLIP_TOL
+    assert near[flip].all(), f"{int((flip & ~near).sum())} gene gate flips away from the threshold"
+    npt.assert_allclose(g[~flip], w[~flip], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_gene_values_match_jax_differential_case(dtype):
+    adata = _differential_adata(dtype)
+    (pos_t, res_t, genes_t), (pos_j, res_j, genes_j) = _both(adata, calculate_gene_values=True, **DIFF_KW)
+    assert pos_t == pos_j
+    assert genes_t.shape == genes_j.shape == adata.shape
+    assert genes_t.dtype == genes_j.dtype == dtype
+    npt.assert_array_equal(np.isnan(genes_t), np.isnan(genes_j))
+    # unannotated genes and chrX are NaN
+    nan_cols = np.isnan(genes_t).all(axis=0)
+    assert nan_cols[10:14].all() and nan_cols[(adata.var["chromosome"] == "chrX").values].all()
+    if dtype == np.float64:
+        npt.assert_allclose(res_t.toarray(), res_j.toarray(), rtol=1e-9, atol=1e-12)
+        npt.assert_allclose(genes_t, genes_j, rtol=1e-9, atol=1e-12)
+    else:
+        kw = {k: v for k, v in DIFF_KW.items() if k != "chunksize"}
+        thr = _chunk_thresholds(adata, DIFF_KW["chunksize"], **kw)
+        _assert_f32_close(res_t, res_j, thr)
+        _assert_gene_f32_close(genes_t, genes_j, thr)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gene_values_bench_style_batches_match_jax(dtype):
+    adata = _bench_adata(n_cells=300)
+    adata.X = adata.X.astype(dtype)
+    kw = dict(reference_key="cell_type", reference_cat=["normal_a", "normal_b"])
+    (_, res_t, genes_t), (_, _, genes_j) = _both(adata, calculate_gene_values=True, chunksize=128, batch_cells=256, **kw)
+    assert genes_t.shape == adata.shape
+    if dtype == np.float64:
+        npt.assert_array_equal(np.isnan(genes_t), np.isnan(genes_j))
+        npt.assert_allclose(genes_t, genes_j, rtol=1e-9, atol=1e-12)
+    else:
+        _assert_gene_f32_close(genes_t, genes_j, _chunk_thresholds(adata, 128, **kw))
+
+
+def test_gene_values_inplace_layer_and_x_cnv_unchanged():
+    adata = _differential_adata(np.float32)
+    plain = adata.copy()
+    tcnv.tl.infercnv(plain, device="cpu", **DIFF_KW)
+    assert "gene_values_cnv" not in plain.layers
+    tcnv.tl.infercnv(adata, device="cpu", calculate_gene_values=True, key_added="cnv", **DIFF_KW)
+    layer = adata.layers["gene_values_cnv"]
+    assert layer.shape == adata.shape and layer.dtype == np.float32
+    _assert_same_csr(adata.obsm["X_cnv"], plain.obsm["X_cnv"])
+    _, res, genes = tcnv.tl.infercnv(adata.copy(), inplace=False, calculate_gene_values=True, **DIFF_KW)
+    _assert_same_csr(res, plain.obsm["X_cnv"])
+    npt.assert_array_equal(genes, layer)
+
+
+@pytest.mark.parametrize("dynamic_threshold", [1.5, None], ids=["gate", "nogate"])
+def test_gene_values_do_not_depend_on_batching_or_result_pack(dynamic_threshold):
+    adata = _bench_adata(n_cells=300)
+    kw = dict(reference_key="cell_type", reference_cat=["normal_a", "normal_b"], chunksize=128,
+              dynamic_threshold=dynamic_threshold, calculate_gene_values=True, inplace=False)
+    _, res0, base = tcnv.tl.infercnv(adata.copy(), compress_results=False, **kw)
+    for batch_cells, pack in [(None, True), (128, True), (256, None), (384, False)]:
+        _, res, got = tcnv.tl.infercnv(adata.copy(), batch_cells=batch_cells, compress_results=pack, **kw)
+        _assert_same_csr(res, res0)
+        npt.assert_array_equal(got.view(np.uint32), base.view(np.uint32))
+
+
+def test_result_pack_caps_are_per_matrix():
+    """The gene matrix's packed capacity must not size the window matrix's fetch."""
+    from infercnvpy_tpu_torch.tl._infercnv import _infercnv_compute
+
+    adata = _bench_adata(n_cells=300)
+    ref = np.asarray(adata.X[:80].mean(axis=0))
+    kw = dict(lfc_clip=3, window_size=100, step=10, dynamic_threshold=1.5, chunksize=100, batch_cells=100,
+              dtype=None, device=torch.device("cpu"))
+    s_x, s_g = {}, {}
+    _, r_x, none = _infercnv_compute(adata.X, adata.var, ref, stats=s_x, **kw)
+    _, r_g, genes = _infercnv_compute(adata.X, adata.var, ref, stats=s_g, calculate_gene_values=True, **kw)
+    assert none is None and genes.shape == adata.shape
+    _assert_same_csr(r_g, r_x)
+    assert s_g["d2h_bytes"] == s_x["d2h_bytes"]
+    assert s_g["gene_d2h_bytes"] > 0
+    assert {"gene_unpack_sec", "gene_scatter_sec"} <= set(s_g)
