@@ -8,14 +8,28 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
 1. device   — needs ``torch.cuda.is_available()``; prints the card's
               ``nvidia-smi`` name and power limit and the torch / CUDA versions
 2. build    — compiles the CUDA kernels from ``infercnvpy_tpu_torch/csrc``
-              with nvcc for sm_90a
+              with nvcc for sm_90a (one nvcc per source, all at once) and,
+              beside them, the native host packer with g++
 3. kernels  — each kernel against its plain PyTorch version on the same CUDA
               tensors: the fused window kernel at 16384 cells × 20000 genes
               (rtol 1e-5, atol 1e-6) and on the synthetic genome; the row
               median kernel bit for bit; CUDA-event times of both versions
+3b. write probe — the write-bandwidth kernel in both modes at 16,384 ×
+              19,968 against its plain version, bit for bit; the card's
+              write rate through ``ops.probe.write_bandwidth``
 4. e2e      — ``tl.infercnv`` with default parameters on a 102,400 × 20,000
-              CSR AnnData at 5 % density; checks the result and that every
-              batch went through the fused kernel
+              CSR AnnData at 5 % density (pipelined: native packer, copy
+              stream); checks the result and that every batch went through
+              the fused kernel
+4b. pipeline — the pipelined result bit for bit against the serialized
+              (``stats``) run; one pipelined run under ``profiling.trace``:
+              device idle share, kernel device time, wall time
+4c. bf16    — ``transfer_dtype="bfloat16"``: fewer host→device bytes than
+              f32, chunk 0 against the port's CPU bf16 path, gate agreement
+              with the f32 run
+4d. checkpoint — ``checkpoint_dir``: 3 of 7 batch files deleted, the rerun
+              launches the fused kernel 3 times and is bit-identical; a
+              changed ``lfc_clip`` raises
 5. parity   — chunk 0 against the port's CPU path, and a rerun of the first
               15,000 cells bit for bit
 6. gene kernels — the gene projection kernel against its plain version at
@@ -26,7 +40,9 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               the k-th smallest kernel at 16384 × 1793, bit for bit; times
 8. gene e2e — ``tl.infercnv(calculate_gene_values=True)`` on a 30,000 ×
               20,000 CSR: every batch through the gene kernel, ``X_cnv`` bit
-              for bit as without the option, chunk 0 against the CPU path
+              for bit as without the option, chunk 0 against the CPU path,
+              and a checkpoint resume of one of the two batches with the gene
+              layer bit for bit
 9. report   — the card line, a JSON line of kernel numbers, then
               ``{"ok": true, "device": {...}}`` as the last line
 
@@ -38,7 +54,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -51,6 +70,7 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 GENE_CELLS = 30_000
 BATCH = 15_000
+E2E_KW = dict(lfc_clip=3, window_size=100, step=10, dynamic_threshold=1.5, chunksize=5000, batch_cells=None, dtype=None)
 
 
 def log(msg: str) -> None:
@@ -126,13 +146,18 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> float:
+    from infercnvpy_tpu_torch import native
     from infercnvpy_tpu_torch.ops import _build
 
     t = time.perf_counter()
-    _build.build(verbose=True)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        packer = pool.submit(native.build)
+        _build.build(verbose=True)
+        packer_path = packer.result()
     _build.library()
+    native.library()
     sec = time.perf_counter() - t
-    log(f"kernels built and loaded in {sec:.1f}s ({_build.nvcc_path()})")
+    log(f"kernels and native packer built and loaded in {sec:.1f}s ({_build.nvcc_path()}; {packer_path.name})")
     return sec
 
 
@@ -230,6 +255,47 @@ def phase_kernels() -> list[dict]:
     ]
 
 
+def phase_probe(k1: dict) -> dict:
+    """K6: the write probe against its plain version, then the card's write rate."""
+    import torch
+
+    from infercnvpy_tpu_torch.ops import probe
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((probe.N, probe.X_COLS), generator=gen, device="cuda", dtype=torch.float32)
+    gb = probe.N * probe.W * 4 / 1e9
+    plain_ms = {}
+    for mode in probe.MODES:
+        got = probe.write_probe_cuda(x, probe.W, mode)
+        want = probe.write_probe_plain(x, probe.W, mode)
+        _bit_identical(got, want, f"K6 write_probe {mode} ({probe.N}, {probe.W})")
+        del got, want
+        plain_ms[mode] = cuda_ms(lambda: probe.write_probe_plain(x, probe.W, mode))
+    del x
+    # the probe's own path, counted: write_bandwidth in both modes
+    probe.write_probe_cuda.launches = 0
+    rate = {mode: probe.write_bandwidth(probe.N, probe.W, mode) for mode in probe.MODES}
+    launches = probe.write_probe_cuda.launches
+    for mode in probe.MODES:
+        log(f"K6 write_probe {mode} ({probe.N}, {probe.W}), {gb:.3f} GB: bit-identical; kernel "
+            f"{gb / rate[mode] * 1e3:.3f} ms ({rate[mode]:.1f} GB/s write), plain {plain_ms[mode]:.3f} ms "
+            f"({gb / plain_ms[mode] * 1e3:.1f} GB/s)")
+    ceiling = max(rate.values())
+    out_gb = KERNEL_ROWS * 1793 * 4 / 1e9
+    in_gb = KERNEL_ROWS * 20480 * 4 / 1e9
+    log(f"K1 at {k1['ms']:.3f} ms writes {out_gb / k1['ms'] * 1e3:.1f} GB/s of output "
+        f"({out_gb / k1['ms'] * 1e3 / ceiling:.2%} of the measured write rate) and reads "
+        f"{in_gb / k1['ms'] * 1e3:.1f} GB/s of input")
+    torch.cuda.empty_cache()
+    return {
+        "name": "write_probe", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/write_probe.cu",
+        "replaces": "tools/probe_write_bw.py:14", "launches": launches, "max_abs_err": 0.0,
+        "ms": gb / rate["blocks"] * 1e3, "plain_ms": plain_ms["blocks"],
+        "ms_bcast": gb / rate["bcast"] * 1e3, "plain_ms_bcast": plain_ms["bcast"],
+        "write_gb_per_s": rate["blocks"], "write_gb_per_s_bcast": rate["bcast"],
+    }
+
+
 def _csr_equal(a, b) -> bool:
     return (
         a.shape == b.shape
@@ -284,13 +350,165 @@ def phase_e2e() -> dict:
 
     reference = _get_reference(adata, "cell_type", cats, None, None)
     stats: dict = {}
-    _infercnv_compute(
-        expr, var[["chromosome", "start", "end"]], reference, lfc_clip=3, window_size=100, step=10,
-        dynamic_threshold=1.5, chunksize=5000, batch_cells=None, dtype=None, device=torch.device("cuda"),
-        stats=stats, progress=False,
+    masked = var[["chromosome", "start", "end"]]
+    _, serial, _ = _infercnv_compute(
+        expr, masked, reference, **E2E_KW, device=torch.device("cuda"), stats=stats, progress=False,
     )
     log("e2e stats run: " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v) for k, v in stats.items()}))
-    return {"adata": adata, "reference": reference, "launches": launches, "wall": wall}
+    return {"adata": adata, "reference": reference, "launches": launches, "wall": wall, "stats": stats,
+            "serial": serial, "expr": expr, "masked": masked, "cats": cats}
+
+
+def _trace_summary(path: Path, wall: float) -> dict:
+    """Device busy time (union of kernel / copy / memset spans), kernel time and idle share of a trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    spans, kernel_us, fused_us = [], 0.0, 0.0
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
+        if e["cat"] == "kernel":
+            kernel_us += float(e.get("dur", 0.0))
+            if "fused_window" in e.get("name", ""):
+                fused_us += float(e.get("dur", 0.0))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        raise AssertionError(f"the trace {path} holds no device activity")
+    return {"busy_sec": busy / 1e6, "kernel_sec": kernel_us / 1e6, "fused_window_sec": fused_us / 1e6,
+            "idle_share": 1.0 - busy / 1e6 / wall, "n_device_events": len(spans)}
+
+
+def phase_pipeline(e2e) -> dict:
+    """The pipelined result against the serialized one, and one traced pipelined run."""
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch import native, profiling
+
+    got, want = e2e["adata"].obsm["X_cnv"], e2e["serial"]
+    if not _csr_equal(got, want):
+        raise AssertionError("the pipelined 102,400-cell result differs from the serialized (stats) run")
+    log(f"pipelined result bit-identical to the serialized run (nnz {got.nnz:,})")
+
+    packer = native.build()
+    if not packer.exists():
+        raise AssertionError(f"native packer library {packer} missing")
+    native.coo_remap.calls = 0
+    n_batches = -(-N_CELLS // BATCH)
+    with tempfile.TemporaryDirectory() as td:
+        with profiling.trace(td):
+            # the wall clock stops before the profiler writes its trace
+            t = time.perf_counter()
+            tcnv.tl.infercnv(e2e["adata"], reference_key="cell_type", reference_cat=e2e["cats"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        summary = _trace_summary(Path(td) / profiling.TRACE_FILE, wall)
+    if native.coo_remap.calls != n_batches:
+        raise AssertionError(f"native coo_remap ran {native.coo_remap.calls} times for {n_batches} batches")
+    if not _csr_equal(e2e["adata"].obsm["X_cnv"], want):
+        raise AssertionError("the traced pipelined run differs from the serialized run")
+    log(f"traced pipelined run: {wall:.3f}s wall, device busy {summary['busy_sec']:.6f}s "
+        f"(kernels {summary['kernel_sec']:.6f}s, fused_window {summary['fused_window_sec']:.6f}s), "
+        f"device idle {summary['idle_share']:.2%}; native coo_remap {native.coo_remap.calls} calls ({packer.name}); "
+        f"the serial batch loop before the pipeline: idle 96.6 %, 4.759 s median wall on an H100 at 700 W")
+    torch.cuda.synchronize()
+    return {"wall": wall, **summary}
+
+
+def phase_bf16(e2e) -> dict:
+    """transfer_dtype="bfloat16" on the 102,400-cell run."""
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch.tl._infercnv import _infercnv_compute
+
+    stats: dict = {}
+    _, serial_bf, _ = _infercnv_compute(
+        e2e["expr"], e2e["masked"], e2e["reference"], **E2E_KW, device=torch.device("cuda"), stats=stats,
+        progress=False, transfer_dtype="bfloat16",
+    )
+    f32_bytes = e2e["stats"]["h2d_bytes"]
+    if not stats["h2d_bytes"] < f32_bytes or stats.get("transfer_dtype") != "bfloat16":
+        raise AssertionError(f"bf16 h2d_bytes {stats['h2d_bytes']} not below f32's {f32_bytes}")
+    adata = e2e["adata"]
+    _, bf, _ = tcnv.tl.infercnv(adata, reference_key="cell_type", reference_cat=e2e["cats"],
+                                transfer_dtype="bfloat16", inplace=False)
+    if not _csr_equal(bf, serial_bf):
+        raise AssertionError("the pipelined bf16 run differs from the serialized bf16 run")
+    f32 = adata.obsm["X_cnv"]
+    flips = int((bf.astype(bool) != f32.astype(bool)).nnz)
+    agree = 1.0 - flips / (f32.shape[0] * f32.shape[1])
+    log(f"bf16 transfer: h2d {stats['h2d_bytes']:,} B vs f32 {f32_bytes:,} B; host_pack "
+        f"{stats['host_pack_sec']:.3f}s, h2d {stats['h2d_sec']:.3f}s; gate agreement with the f32 run "
+        f"{agree:.6%} ({flips:,} flips); pipelined bf16 run bit-identical to its serialized run")
+
+    sub = adata[:5000]
+    kw = dict(reference=e2e["reference"], inplace=False, transfer_dtype="bfloat16")
+    _, gpu, _ = tcnv.tl.infercnv(sub, device="cuda", **kw)
+    _, cpu, _ = tcnv.tl.infercnv(sub, device="cpu", **kw)
+    same_gate, err = _chunk0_compare(gpu.toarray(), cpu.toarray(), "bf16 chunk 0")
+    return {"h2d_bytes": stats["h2d_bytes"], "f32_h2d_bytes": f32_bytes, "gate_agreement_vs_f32": agree,
+            "chunk0_gate_agreement": same_gate, "chunk0_max_abs_diff": err}
+
+
+def _chunk0_compare(g: np.ndarray, c: np.ndarray, what: str) -> tuple[float, float]:
+    """The phase-5 bars: gate pattern >= 99.99 %, values at rtol 1e-4 / atol 1e-5 where both are nonzero."""
+    same_gate = float(((g != 0) == (c != 0)).mean())
+    both = (g != 0) & (c != 0)
+    err = float(np.abs(g[both] - c[both]).max()) if both.any() else 0.0
+    log(f"{what} (5000 cells) GPU vs CPU: gate agrees on {same_gate:.6%} of entries, "
+        f"max |diff| where both nonzero {err:.3e}")
+    if same_gate < 0.9999:
+        raise AssertionError(f"{what}: gate pattern agrees on only {same_gate:.6%} of entries")
+    np.testing.assert_allclose(g[both], c[both], rtol=1e-4, atol=1e-5)
+    return same_gate, err
+
+
+def _expect_config_mismatch(run) -> None:
+    try:
+        run()
+    except ValueError as e:
+        if "DIFFERENT configuration" not in str(e):
+            raise
+        log(f"changed configuration refused: {e}")
+        return
+    raise AssertionError("a checkpoint of another configuration was not refused")
+
+
+def phase_checkpoint(e2e) -> dict:
+    """checkpoint_dir on the 102,400-cell run: resume after losing 3 of 7 batch files."""
+    import infercnvpy_tpu_torch as tcnv
+
+    adata = e2e["adata"]
+    kw = dict(reference_key="cell_type", reference_cat=e2e["cats"], inplace=False)
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        _, full, _ = tcnv.tl.infercnv(adata, checkpoint_dir=td, **kw)
+        first = time.perf_counter() - t
+        if not _csr_equal(full, adata.obsm["X_cnv"]):
+            raise AssertionError("the checkpointed run differs from the run without checkpoint_dir")
+        files = sorted(Path(td).glob("batch_*.npz"))
+        if len(files) != 7:
+            raise AssertionError(f"{len(files)} batch files for 7 batches")
+        for f in (files[1], files[3], files[6]):
+            f.unlink()
+        _reset_counts()
+        t = time.perf_counter()
+        _, resumed, _ = tcnv.tl.infercnv(adata, checkpoint_dir=td, **kw)
+        again = time.perf_counter() - t
+        launches = _read_counts()
+        if launches["fused_window"] != 3:
+            raise AssertionError(f"the resumed run launched fused_window {launches['fused_window']} times, not 3")
+        if not _csr_equal(resumed, full):
+            raise AssertionError("the resumed run differs from the uninterrupted run")
+        _expect_config_mismatch(lambda: tcnv.tl.infercnv(adata, checkpoint_dir=td, lfc_clip=2.5, **kw))
+    log(f"checkpoint: first run {first:.3f}s (7 batch files), resume of 3 of 7 batches {again:.3f}s with "
+        f"fused_window launched {launches['fused_window']} times, bit-identical")
+    return {"first_sec": first, "resume_sec": again, "resume_launches": launches["fused_window"]}
 
 
 def phase_parity(adata, reference) -> None:
@@ -301,16 +519,7 @@ def phase_parity(adata, reference) -> None:
     sub = adata[:5000]
     _, gpu, _ = tcnv.tl.infercnv(sub, reference=reference, device="cuda", inplace=False)
     _, cpu, _ = tcnv.tl.infercnv(sub, reference=reference, device="cpu", inplace=False)
-    g = gpu.toarray()
-    c = cpu.toarray()
-    same_gate = float(((g != 0) == (c != 0)).mean())
-    both = (g != 0) & (c != 0)
-    err = float(np.abs(g[both] - c[both]).max()) if both.any() else 0.0
-    log(f"chunk 0 (5000 cells) GPU vs CPU: gate agrees on {same_gate:.6%} of entries, "
-        f"max |diff| where both nonzero {err:.3e}")
-    if same_gate < 0.9999:
-        raise AssertionError(f"gate pattern agrees on only {same_gate:.6%} of entries")
-    np.testing.assert_allclose(g[both], c[both], rtol=1e-4, atol=1e-5)
+    _chunk0_compare(gpu.toarray(), cpu.toarray(), "chunk 0")
 
     sub = adata[:15000]
     _, first, _ = tcnv.tl.infercnv(sub, reference=reference, device="cuda", inplace=False)
@@ -353,7 +562,7 @@ def _k3_case(plan, rows: int, seed: int) -> dict:
     return {"x": x, "thr": thr, "gpd": gpd, **errs}
 
 
-def phase_gene_kernels() -> dict:
+def phase_gene_kernels(write_rate: float) -> dict:
     import torch
 
     from infercnvpy_tpu_torch.datasets import synthetic_cnv_dataset
@@ -371,8 +580,8 @@ def phase_gene_kernels() -> dict:
     ms = cuda_ms(lambda: gene_project_cuda(x, thr, gpd, gate=True))
     plain_ms = cuda_ms(lambda: gene_project_plain(x, thr, gpd, gate=True))
     out_gb = KERNEL_ROWS * gpd.total * 4 / 1e9
-    log(f"K3 time (gated): kernel {ms:.3f} ms ({out_gb / ms:.3f} TB/s of output), plain {plain_ms:.3f} ms "
-        f"(median of 5, CUDA events)")
+    log(f"K3 time (gated): kernel {ms:.3f} ms ({out_gb / ms:.3f} TB/s of output, {out_gb / ms * 1e3 / write_rate:.2%} "
+        f"of the measured write rate), plain {plain_ms:.3f} ms (median of 5, CUDA events)")
     err = max(bench["ungated"], bench["gated"])
     del bench, x, thr
 
@@ -468,12 +677,13 @@ def _kernel_wrappers() -> dict:
     """Each kernel's wrapper, by the name the report gives the kernel."""
     from infercnvpy_tpu_torch.ops.fused import fused_center_smooth_median_cuda
     from infercnvpy_tpu_torch.ops.gene import gene_project_cuda
+    from infercnvpy_tpu_torch.ops.probe import write_probe_cuda
     from infercnvpy_tpu_torch.ops.select import row_kth_smallest_cuda, row_median_cuda, row_median_weighted_cuda
 
     return {
         "fused_window": fused_center_smooth_median_cuda, "gene_project": gene_project_cuda,
         "row_median": row_median_cuda, "row_median_weighted": row_median_weighted_cuda,
-        "row_kth_smallest": row_kth_smallest_cuda,
+        "row_kth_smallest": row_kth_smallest_cuda, "write_probe": write_probe_cuda,
     }
 
 
@@ -574,6 +784,28 @@ def phase_gene_e2e() -> dict:
     )
     _reindex_genes(per_gene, obs.index, masked.index, var.index, stats)
     log("gene e2e stats run: " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v) for k, v in stats.items()}))
+    del per_gene
+
+    # checkpoint: lose the second of the two batch files, resume
+    with tempfile.TemporaryDirectory() as td:
+        _, res1, g1 = tcnv.tl.infercnv(adata, checkpoint_dir=td, inplace=False, calculate_gene_values=True, **kw)
+        files = sorted(Path(td).glob("batch_*.npz"))
+        if len(files) != n_batches:
+            raise AssertionError(f"{len(files)} batch files for {n_batches} batches")
+        files[-1].unlink()
+        _reset_counts()
+        _, res2, g2 = tcnv.tl.infercnv(adata, checkpoint_dir=td, inplace=False, calculate_gene_values=True, **kw)
+        resumed = _read_counts()
+        if resumed["gene_project"] != 1 or resumed["fused_window"] != 1:
+            raise AssertionError(f"{resumed}: the resume of 1 of 2 batches must launch each kernel once")
+        for what, g in (("checkpointed", g1), ("resumed", g2)):
+            if not np.array_equal(g.view(np.uint32), genes.view(np.uint32)):
+                raise AssertionError(f"the {what} gene layer differs from the run without checkpoint_dir")
+        if not (_csr_equal(res1, adata.obsm["X_cnv"]) and _csr_equal(res2, adata.obsm["X_cnv"])):
+            raise AssertionError("X_cnv of the checkpointed gene run differs")
+        _expect_config_mismatch(lambda: tcnv.tl.infercnv(adata, checkpoint_dir=td, inplace=False, lfc_clip=2.5,
+                                                         calculate_gene_values=True, **kw))
+    log(f"gene checkpoint: resume of 1 of {n_batches} batches launched {resumed}, gene layer and X_cnv bit-identical")
     return {"launches": launches, "wall": wall}
 
 
@@ -583,24 +815,31 @@ def main() -> int:
     smi, kind = phase_device()
     phase_build()
     kernels = phase_kernels()
+    probe = phase_probe(kernels[0])
     e2e = phase_e2e()
+    phase_pipeline(e2e)
+    phase_bf16(e2e)
+    phase_checkpoint(e2e)
     phase_parity(e2e["adata"], e2e["reference"])
-    del e2e["adata"]
-    gene_kernel = phase_gene_kernels()
+    e2e_launches = e2e["launches"]
+    del e2e
+    gene_kernel = phase_gene_kernels(probe["write_gb_per_s"])
     selects = phase_select_kernels()
     gene_e2e = phase_gene_e2e()
     # each path's kernels take their launches from that path's run
-    kernels[0]["launches"] = e2e["launches"]["fused_window"]
+    kernels[0]["launches"] = e2e_launches["fused_window"]
     gene_kernel["launches"] = gene_e2e["launches"]["gene_project"]
     on_path = [kernels[0], gene_kernel]
     off_path = [kernels[1], *selects]
     for k in off_path:
-        k["launches"] = e2e["launches"][k["name"]] + gene_e2e["launches"][k["name"]]
+        k["launches"] = e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]]
     print(smi)
     # row_median, row_median_weighted and row_kth_smallest are ported and
     # checked, but the paths run their select inside fused_window and
-    # gene_project, so they are reported apart from the paths' kernels
-    print(json.dumps({"kernels": on_path, "kernels_off_main_path": off_path}))
+    # gene_project, so they are reported apart from the paths' kernels; the
+    # write probe has a path of its own (write_bandwidth), whose launches it
+    # reports
+    print(json.dumps({"kernels": on_path, "kernels_off_main_path": [*off_path, probe]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

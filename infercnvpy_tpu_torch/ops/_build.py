@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc -> plain C ABI -> ctypes).
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, at first use, into ``infercnvpy_tpu_torch/_build/``.  The
+a plain C interface, at first use, into ``infercnvpy_tpu_torch/_build/``:
+one ``nvcc -c`` per source, all started together, then one link.  The
 file name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads the existing library.  The build writes a
 temporary file and renames it, so concurrent processes never load a partial
@@ -26,8 +27,8 @@ __all__ = ["library", "check", "current_stream", "nvcc_path", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("select.cuh", "fused_window.cu", "row_median.cu", "row_select.cu", "gene_project.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("select.cuh", "fused_window.cu", "row_median.cu", "row_select.cu", "gene_project.cu", "write_probe.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +47,8 @@ _SIGNATURES = {
     # x, thr, g_lo, g_hi, g_counts, gidx, out, rows, n_windows, n_groups, n_covered, gate, stream
     "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "gene_project_max_smem": (),
+    # x, out, n, ld, w, mode, stream
+    "write_probe_launch": (_P, _P, _I, _I, _I, _I, _P),
 }
 
 _LIB = None
@@ -74,26 +77,39 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands concurrently; return their stderr, raising on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    return errs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if no library for the current sources exists; return its path."""
     out = BUILD_DIR / f"libinfercnv_kernels-{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES if s.endswith(".cu"))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        if verbose and proc.stderr:
-            print(proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [s for s in SOURCES if s.endswith(".cu")]
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in cus]
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        errs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(CSRC / s), "-o", o] for s, o in zip(cus, objs)])
+        lib = str(Path(tmp) / "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        if verbose:
+            print("".join(errs))
+        os.replace(lib, out)
     return out
 
 

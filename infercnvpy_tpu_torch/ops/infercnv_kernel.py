@@ -16,8 +16,9 @@ Numerics contract (must match reference tl/_infercnv.py:411-457):
    ``chunk_ids``
 
 The host packs genes into the plan's packed layout while densifying
-(:func:`pack_columns` / :func:`pack_csr`, or the device densify in
-``ops.sparse_ingest``), so the device never gathers the permutation.
+(:func:`pack_columns` / :func:`pack_csr` in native code, with numpy
+references beside them, or the device densify in ``ops.sparse_ingest``), so
+the device never gathers the permutation.
 
 The plain pipeline here (:func:`center_smooth_median`, :func:`chunk_gate`)
 serves f32 on the CPU, f64 on any device, and is the oracle for the fused CUDA
@@ -37,7 +38,7 @@ from .select import row_median_plain
 
 __all__ = [
     "apply_gate", "build_infercnv_fn", "center", "center_smooth_median", "chunk_gate", "chunk_threshold",
-    "pack_columns", "pack_csr",
+    "pack_columns", "pack_columns_plain", "pack_csr", "pack_csr_plain",
     "packed_width", "small_offsets", "smooth_packed",
 ]
 
@@ -81,9 +82,24 @@ def _pack_lut(plan: WindowPlan, n_genes: int) -> np.ndarray:
 
 
 def pack_columns(
-    x: np.ndarray, plan: WindowPlan, lut: np.ndarray | None = None, dtype=None
+    x: np.ndarray, plan: WindowPlan, lut: np.ndarray | None = None, dtype=None, *, out=None
 ) -> np.ndarray:
-    """Pack a dense (rows × masked_genes) block into the packed layout."""
+    """Pack a dense (rows × masked_genes) block into the packed layout, in native code.
+
+    ``out`` is an optional (rows, packed_width) buffer to write into.  Runs
+    ``native.pack_dense`` (as ``infercnvpy_tpu/ops/infercnv_kernel.py:77``
+    does); :func:`pack_columns_plain` is its numpy reference.
+    """
+    from .. import native
+
+    if lut is None:
+        lut = _pack_lut(plan, x.shape[1])
+    out_dtype = np.dtype(dtype) if dtype is not None else np.asarray(x).dtype
+    return native.pack_dense(np.asarray(x, dtype=out_dtype), lut, packed_width(plan), out=out)
+
+
+def pack_columns_plain(x: np.ndarray, plan: WindowPlan, lut: np.ndarray | None = None, dtype=None) -> np.ndarray:
+    """numpy reference of :func:`pack_columns`."""
     if lut is None:
         lut = _pack_lut(plan, x.shape[1])
     out_dtype = np.dtype(dtype) if dtype is not None else np.asarray(x).dtype
@@ -93,8 +109,37 @@ def pack_columns(
     return out
 
 
-def pack_csr(x: sp.spmatrix, plan: WindowPlan, lut: np.ndarray | None = None, dtype=None) -> np.ndarray:
-    """Densify a CSR block straight into the packed layout (no intermediate)."""
+def pack_csr(
+    x: sp.spmatrix,
+    plan: WindowPlan,
+    lut: np.ndarray | None = None,
+    dtype=None,
+    *,
+    rows: tuple[int, int] | None = None,
+    out=None,
+) -> np.ndarray:
+    """Densify a CSR block straight into the packed layout, in native code.
+
+    ``rows=(start, stop)`` takes that row range of ``x`` without slicing the
+    matrix; ``out`` is an optional buffer to write into.  Runs
+    ``native.pack_csr`` (as ``infercnvpy_tpu/ops/infercnv_kernel.py:98``
+    does); :func:`pack_csr_plain` is its numpy reference.
+    """
+    from .. import native
+
+    x = x.tocsr()
+    if lut is None:
+        lut = _pack_lut(plan, x.shape[1])
+    out_dtype = np.dtype(dtype) if dtype is not None else np.result_type(x.dtype, np.float32)
+    start, stop = rows if rows is not None else (0, x.shape[0])
+    ptr = x.indptr[start : stop + 1]
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    data = x.data[lo:hi].astype(out_dtype, copy=False)
+    return native.pack_csr(ptr - lo, x.indices[lo:hi], data, lut, packed_width(plan), out=out)
+
+
+def pack_csr_plain(x: sp.spmatrix, plan: WindowPlan, lut: np.ndarray | None = None, dtype=None) -> np.ndarray:
+    """numpy reference of :func:`pack_csr`."""
     x = x.tocsr()
     if lut is None:
         lut = _pack_lut(plan, x.shape[1])

@@ -85,7 +85,7 @@ def mask_vals_to_csr(mask: np.ndarray, vals: np.ndarray, n_windows: int) -> sp.c
     nnz = int(indptr[-1])
     flat_cols = np.flatnonzero(bits.reshape(-1))
     indices = (flat_cols % n_windows).astype(np.int32)
-    data = np.ascontiguousarray(vals[:nnz])
+    data = np.array(vals[:nnz])  # a copy: ``vals`` may be a reused host buffer
     if nnz < 2**31 - 1:
         indptr = indptr.astype(np.int32)  # scipy needs ONE index dtype
     else:  # pragma: no cover - >2^31 nnz in one batch

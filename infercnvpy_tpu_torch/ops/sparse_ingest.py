@@ -19,7 +19,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-__all__ = ["coo_from_csr_batch", "col_index_dtype", "densify", "round_nnz_cap"]
+__all__ = ["coo_from_csr_batch", "coo_from_csr_batch_plain", "col_index_dtype", "densify", "round_nnz_cap"]
 
 #: nnz capacities are rounded up to a multiple of this, so the transfer
 #: buffers of consecutive batches of similar density have one size
@@ -36,22 +36,62 @@ def round_nnz_cap(nnz: int) -> int:
     return max(_NNZ_BUCKET, ((nnz + _NNZ_BUCKET - 1) // _NNZ_BUCKET) * _NNZ_BUCKET)
 
 
+def _is_bf16(val_dtype) -> bool:
+    return str(val_dtype) in ("bf16", "bfloat16", "torch.bfloat16")
+
+
 def coo_from_csr_batch(
     x: sp.spmatrix,
     lut: np.ndarray,
     width: int,
     nnz_cap: int | None = None,
     val_dtype=np.float32,
+    *,
+    rows: tuple[int, int] | None = None,
+    out=None,
 ):
-    """Host half of the sparse ingest: CSR batch -> flat transfer arrays.
+    """Host half of the sparse ingest: CSR batch -> flat transfer arrays, in native code.
 
     Returns ``(cols, vals, counts, nnz_kept)``:
 
     * ``cols``   — (nnz_cap,) packed column per kept nonzero, padded with
       ``width - 1`` (pad values are 0, so the device add is a no-op)
-    * ``vals``   — (nnz_cap,) matching values, zero-padded
+    * ``vals``   — (nnz_cap,) matching values, zero-padded; for a
+      ``val_dtype`` of ``"bfloat16"``, bfloat16 bit patterns in uint16
+      (rounded from float32, see ``native.coo_remap``)
     * ``counts`` — (n_rows,) int32 kept-nonzeros per row
+
+    ``rows=(start, stop)`` takes that row range of ``x`` without slicing the
+    matrix; ``out`` is an optional ``(cols, vals, counts)`` triple of buffers
+    to write into.  Runs ``native.coo_remap`` (as
+    ``infercnvpy_tpu/ops/sparse_ingest.py:71`` does);
+    :func:`coo_from_csr_batch_plain` is its numpy reference.
     """
+    from .. import native
+
+    x = x.tocsr()
+    start, stop = rows if rows is not None else (0, x.shape[0])
+    ptr = x.indptr[start : stop + 1]
+    lo, hi = int(ptr[0]), int(ptr[-1])
+    bf16 = _is_bf16(val_dtype)
+    data = x.data[lo:hi].astype(np.float32 if bf16 else val_dtype, copy=False)
+    cap = nnz_cap if nnz_cap is not None else hi - lo
+    cols, vals, counts, nnz = native.coo_remap(
+        ptr - lo, x.indices[lo:hi], data, lut, cap, col_index_dtype(width), bf16=bf16, pad_col=width - 1, out=out
+    )
+    if nnz_cap is None:
+        cols, vals = cols[:nnz], vals[:nnz]
+    return cols, vals, counts, nnz
+
+
+def coo_from_csr_batch_plain(
+    x: sp.spmatrix,
+    lut: np.ndarray,
+    width: int,
+    nnz_cap: int | None = None,
+    val_dtype=np.float32,
+):
+    """numpy reference of :func:`coo_from_csr_batch` (float ``val_dtype`` only)."""
     x = x.tocsr()
     n_rows = x.shape[0]
     new_cols = lut[x.indices]

@@ -193,11 +193,9 @@ def test_validation_messages_identical(oligo, mutate, kw):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"checkpoint_dir": "ckpt"}, "checkpoint/resume"),
-        ({"transfer_dtype": "bfloat16"}, "transfer_dtype"),
         ({"device": ["cpu", "cpu"]}, "multi-device"),
     ],
-    ids=["checkpoint", "transfer_dtype", "multi_device"],
+    ids=["multi_device"],
 )
 def test_unported_options_raise(oligo, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
