@@ -13,7 +13,13 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
 3. kernels  — each kernel against its plain PyTorch version on the same CUDA
               tensors: the fused window kernel at 16384 cells × 20000 genes
               (rtol 1e-5, atol 1e-6) and on the synthetic genome; the row
-              median kernel bit for bit; CUDA-event times of both versions
+              median kernel bit for bit; CUDA-event times of both versions;
+              then the shapes where the staged kernel can break: 1, 133 and
+              15,000 rows, a width off a multiple of 4 (rows off 16 bytes),
+              window / step 250 / 25 and 40 / 7 (the generic instantiation),
+              60,000 genes (a row wider than shared memory),
+              each also bit-identical on a second launch; selects on
+              all-equal, two-valued, signed-zero, infinite and denormal rows
 3b. write probe — the write-bandwidth kernel in both modes at 16,384 ×
               19,968 against its plain version, bit for bit; the card's
               write rate through ``ops.probe.write_bandwidth``
@@ -34,7 +40,9 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               15,000 cells bit for bit
 6. gene kernels — the gene projection kernel against its plain version at
               16384 cells × 1793 windows (→ 19,910 gene columns), gated and
-              ungated, and on the synthetic genome; CUDA-event times
+              ungated, and on the synthetic genome; CUDA-event times; odd
+              and even row counts at gene counts 0, 1, 2 and 3 modulo 4 (row
+              starts off 16 bytes), ungated bit for bit
 7. selects  — the weighted median kernel at 16384 × 1991 (the bench plan's
               genes per coverage group as weights, odd and even totals) and
               the k-th smallest kernel at 16384 × 1793, bit for bit; times
@@ -43,7 +51,10 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               for bit as without the option, chunk 0 against the CPU path,
               and a checkpoint resume of one of the two batches with the gene
               layer bit for bit
-9. report   — the card line, a JSON line of kernel numbers, then
+9. report   — the card line, a JSON line of kernel numbers (each kernel
+              with its bytes, its bound on an H100 from those bytes and
+              operations, its share of the bound and, where one PyTorch call
+              computes the same function, that call's time), then
               ``{"ok": true, "device": {...}}`` as the last line
 
 It imports nothing of JAX and nothing of ``infercnvpy_tpu``.
@@ -113,8 +124,12 @@ def make_csr(n_cells: int, n_genes: int, density: float, seed: int = 1):
     return expr
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn()`` in ms over ``reps`` runs, after one warm-up."""
+def cuda_ms(fn, reps: int = 5, inner: int = 10) -> float:
+    """Time of one ``fn()`` in ms: CUDA events around ``inner`` calls in a row, median of ``reps`` such runs.
+
+    The calls of a run queue up behind each other, so the host's work per
+    launch hides behind the card's and the quotient is the device time of a call.
+    """
     import torch
 
     fn()
@@ -122,12 +137,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+# NVIDIA's data sheet for the H100 SXM: device memory rate and the float32
+# rate outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time the card could take: the larger of bytes / memory rate and operations / f32 rate."""
+    by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    by_ops = n_ops / H100_F32_OPS_PER_S * 1e3
+    return {"bytes": int(n_bytes), "operations": int(n_ops), "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def phase_device() -> tuple[str, str]:
@@ -162,7 +193,7 @@ def phase_build() -> float:
 
 
 def _k1_case(plan, rows: int, n_ref: int, seed: int) -> dict:
-    """K1 vs its plain version on the same CUDA tensors."""
+    """K1 vs its plain version on the same CUDA tensors, and a second launch bit for bit."""
     import torch
 
     from infercnvpy_tpu_torch.ops.fused import fused_center_smooth_median_cuda, fused_center_smooth_median_plain
@@ -176,8 +207,12 @@ def _k1_case(plan, rows: int, n_ref: int, seed: int) -> dict:
     ref2 = torch.from_numpy(ref2).cuda()
     kw = dict(lfc_clip=3.0, n_ref=n_ref)
     got = fused_center_smooth_median_cuda(x, ref2, plan, **kw)
+    again = fused_center_smooth_median_cuda(x, ref2, plan, **kw)
     want = fused_center_smooth_median_plain(x, ref2, plan, **kw)
     torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        if not torch.equal(g.view(torch.int32), a.view(torch.int32)):
+            raise AssertionError(f"K1 ({rows}, {width}): a second launch changed bits")
     out_k, rs_k, rsq_k, med_k = got
     out_p, rs_p, rsq_p, med_p = want
     assert out_k.shape == (rows, plan.n_windows), out_k.shape
@@ -191,12 +226,92 @@ def _k1_case(plan, rows: int, n_ref: int, seed: int) -> dict:
     return {"x": x, "ref2": ref2, "kw": kw, "max_abs_err": err}
 
 
+def _k1_edges(plan, synthetic_var) -> float:
+    """K1 at the shapes where the staged design can break; returns the largest |kernel - plain|."""
+    from infercnvpy_tpu_torch.genome import build_window_plan
+    from infercnvpy_tpu_torch.ops import _build
+    from infercnvpy_tpu_torch.ops.fused import stage_plan
+    from infercnvpy_tpu_torch.ops.infercnv_kernel import packed_width
+
+    worst = 0.0
+    for rows in (1, 133, BATCH):
+        err = _k1_case(plan, rows, n_ref=2, seed=10 + rows)["max_abs_err"]
+        worst = max(worst, err)
+        log(f"K1 edge: {rows} rows x {packed_width(plan)}: max |kernel - plain| = {err:.3e}, rerun bit-identical")
+    # a packed width off a multiple of 4: every row but the first starts off 16 bytes
+    odd = None
+    for drop in range(4):
+        small = synthetic_var[synthetic_var["chromosome"] == "chr21"].index[:drop]
+        cand = build_window_plan(synthetic_var.drop(index=small), 100, 10)
+        if packed_width(cand) % 4:
+            odd = cand
+            break
+    if odd is None or not odd.n_small:
+        raise AssertionError("no synthetic plan with small chromosomes and a packed width off a multiple of 4")
+    for rows, n_ref in ((1, 2), (133, 1)):
+        err = _k1_case(odd, rows, n_ref=n_ref, seed=20 + rows)["max_abs_err"]
+        worst = max(worst, err)
+        log(f"K1 edge: width {packed_width(odd)} (= {packed_width(odd) % 4} mod 4), {rows} rows, n_ref={n_ref}: "
+            f"max |kernel - plain| = {err:.3e}")
+    for window, step in ((250, 25), (40, 7)):
+        gplan = build_window_plan(make_var(N_GENES), window, step)
+        err = _k1_case(gplan, 133, n_ref=2, seed=window)["max_abs_err"]
+        worst = max(worst, err)
+        log(f"K1 edge: window {window} / step {step} ({gplan.n_windows} windows, generic instantiation): "
+            f"max |kernel - plain| = {err:.3e}")
+    wide = build_window_plan(make_var(60_000), 100, 10)
+    lib = _build.library()
+    stage = stage_plan(wide, lib.fused_window_smem_budget(2), lib.fused_window_smem_budget(1))
+    if stage["n_tiles"] < 2 or packed_width(wide) * 4 < lib.fused_window_smem_budget(1):
+        raise AssertionError(f"the 60,000-gene plan was expected to be wider than shared memory, got {stage}")
+    err = _k1_case(wide, 64, n_ref=2, seed=60)["max_abs_err"]
+    worst = max(worst, err)
+    log(f"K1 edge: 60,000 genes, width {packed_width(wide)} in "
+        f"{stage['n_tiles']} column tiles of {stage['tile_conv']} conv positions ({stage['smem_bytes']} B of "
+        f"shared memory): "
+        f"max |kernel - plain| = {err:.3e}")
+    return worst
+
+
+def _select_edges() -> None:
+    """K2, K4, K5 on rows of equal, two-valued, signed-zero, infinite and denormal values, bit for bit."""
+    import torch
+
+    from infercnvpy_tpu_torch.ops import select as ts
+
+    for width in (1, 2, 257, 1793, 1794, 5000):
+        x = np.random.default_rng(width).normal(size=(64, width)).astype(np.float32)
+        x[:16] = 0.75
+        x[16:32] = np.where(x[16:32] > 0, np.float32(1.5), np.float32(-2.0))
+        x[32:40] = np.where(x[32:40] > 0, np.float32(0.0), np.float32(-0.0))
+        x[40] = np.inf
+        x[41, : width // 2] = -np.inf
+        x[42] *= np.float32(1e-42)
+        xd = torch.from_numpy(x).cuda()
+        _bit_identical(ts.row_median_cuda(xd), ts.row_median_plain(xd), f"K2 degenerate rows, width {width}")
+        for k in sorted({0, width // 2, width - 1}):
+            _bit_identical(ts.row_kth_smallest_cuda(xd, k), ts.row_kth_smallest_plain(xd, k),
+                           f"K5 degenerate rows, width {width}, k={k}")
+        wts = np.random.default_rng(1).integers(0, 9, size=width)
+        wts[0] += 1
+        for parity in (0, 1):
+            w2 = wts.copy()
+            w2[0] += (int(w2.sum()) + parity) % 2
+            _bit_identical(ts.row_median_weighted_cuda(xd, w2), ts.row_median_weighted_plain(xd, w2),
+                           f"K4 degenerate rows, width {width}, total {int(w2.sum())}")
+    log("selects on all-equal, two-valued, signed-zero, infinite and denormal rows (widths 1 to 5000): bit-identical")
+
+
 def phase_kernels() -> list[dict]:
     import torch
 
     from infercnvpy_tpu_torch.datasets import synthetic_cnv_dataset
     from infercnvpy_tpu_torch.genome import build_window_plan
-    from infercnvpy_tpu_torch.ops.fused import fused_center_smooth_median_cuda, fused_center_smooth_median_plain
+    from infercnvpy_tpu_torch.ops.fused import (
+        fused_center_smooth_median_cuda,
+        fused_center_smooth_median_plain,
+        window_tasks,
+    )
     from infercnvpy_tpu_torch.ops.infercnv_kernel import packed_width
     from infercnvpy_tpu_torch.ops.select import row_median_cuda, row_median_plain
 
@@ -213,7 +328,7 @@ def phase_kernels() -> list[dict]:
         f"max |kernel - plain| = {bench['max_abs_err']:.3e} (bar rtol {K1_RTOL}, atol {K1_ATOL})")
     k1_ms = cuda_ms(lambda: fused_center_smooth_median_cuda(bench["x"], bench["ref2"], plan, **bench["kw"]))
     k1_plain_ms = cuda_ms(lambda: fused_center_smooth_median_plain(bench["x"], bench["ref2"], plan, **bench["kw"]))
-    log(f"K1 time: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms (median of 5, CUDA events)")
+    log(f"K1 time: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms (CUDA events around 10 calls in a row, median of 5 runs)")
     del bench
 
     var = synthetic_cnv_dataset(n_cells=8, n_genes=4000, seed=0).var
@@ -225,6 +340,7 @@ def phase_kernels() -> list[dict]:
     log(f"K1 fused_window synthetic genome ({splan.n_small} small chromosomes, {splan.n_windows} windows, "
         f"n_ref=1): max |kernel - plain| = {syn['max_abs_err']:.3e}")
     del syn
+    k1_err = max(k1_err, _k1_edges(plan, var))
 
     k2 = []
     rng = np.random.default_rng(2)
@@ -238,19 +354,33 @@ def phase_kernels() -> list[dict]:
             raise AssertionError(f"K2 row_median ({KERNEL_ROWS}, {w}): {bad} rows differ from the plain median")
         t_k = cuda_ms(lambda: row_median_cuda(x))
         t_p = cuda_ms(lambda: row_median_plain(x))
-        k2.append((w, t_k, t_p))
-        log(f"K2 row_median ({KERNEL_ROWS}, {w}): bit-identical; kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+        # the one PyTorch call for the same function: a yardstick, never called by the port
+        lib_out = torch.quantile(x, 0.5, dim=1, interpolation="midpoint")
+        torch.testing.assert_close(lib_out, got, rtol=1e-6, atol=1e-7)
+        t_l = cuda_ms(lambda: torch.quantile(x, 0.5, dim=1, interpolation="midpoint"))
+        k2.append((w, t_k, t_p, t_l))
+        log(f"K2 row_median ({KERNEL_ROWS}, {w}): bit-identical; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+            f"torch.quantile(midpoint) {t_l:.3f} ms")
+    _select_edges()
 
     return [
         {
             "name": "fused_window", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/fused_window.cu",
             "replaces": "infercnvpy_tpu/ops/pallas_fused.py:187", "launches": None,
-            "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+            "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": None,
+            # x read once, windows and stats written once, the reference rows and the task table read once;
+            # one multiply-add per tap, two centring clips per input element
+            **bound(KERNEL_ROWS * (20480 + 1793 + 3) * 4 + 2 * 20480 * 4 + len(window_tasks(plan)) * 16,
+                    KERNEL_ROWS * (1793 * 100 * 2 + 20480 * 5)),
         },
         {
             "name": "row_median", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_median.cu",
             "replaces": "infercnvpy_tpu/ops/pallas_select.py:79", "launches": None, "max_abs_err": 0.0,
             "ms": k2[0][1], "plain_ms": k2[0][2], "ms_even_width": k2[1][1], "plain_ms_even_width": k2[1][2],
+            "library_ms": k2[0][3], "library": 'torch.quantile(x, 0.5, dim=1, interpolation="midpoint")',
+            "library_ms_even_width": k2[1][3],
+            # 4 passes, each a key compare and a histogram add per value
+            **bound(KERNEL_ROWS * (1793 + 1) * 4, KERNEL_ROWS * 1793 * 4 * 2),
         },
     ]
 
@@ -291,6 +421,9 @@ def phase_probe(k1: dict) -> dict:
         "name": "write_probe", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/write_probe.cu",
         "replaces": "tools/probe_write_bw.py:14", "launches": launches, "max_abs_err": 0.0,
         "ms": gb / rate["blocks"] * 1e3, "plain_ms": plain_ms["blocks"],
+        # its plain version is the one PyTorch call for the same function
+        "library_ms": plain_ms["blocks"], "library": "ops.probe.write_probe_plain (one broadcast multiply)",
+        **bound(probe.N * (probe.X_COLS + probe.W) * 4, probe.N * probe.W),
         "ms_bcast": gb / rate["bcast"] * 1e3, "plain_ms_bcast": plain_ms["bcast"],
         "write_gb_per_s": rate["blocks"], "write_gb_per_s_bcast": rate["bcast"],
     }
@@ -562,6 +695,32 @@ def _k3_case(plan, rows: int, seed: int) -> dict:
     return {"x": x, "thr": thr, "gpd": gpd, **errs}
 
 
+def _k3_edges(synthetic_var) -> None:
+    """K3 ungated, bit for bit, with rows that start 0, 4, 8 and 12 bytes off a 16-byte address."""
+    import torch
+
+    from infercnvpy_tpu_torch.genome import build_window_plan
+    from infercnvpy_tpu_torch.ops.gene import gene_project_cuda, gene_project_plain, gene_projection_data
+
+    seen = {}
+    small = synthetic_var[synthetic_var["chromosome"] == "chr21"].index
+    for drop in range(8):
+        plan = build_window_plan(synthetic_var.drop(index=small[:drop]), 100, 10)
+        gpd = gene_projection_data(plan)
+        if gpd.total % 4 in seen:
+            continue
+        seen[gpd.total % 4] = gpd.total
+        for rows in (1, 2, 133, 1024):
+            rng = np.random.default_rng(rows + drop)
+            x = torch.from_numpy(rng.standard_normal((rows, plan.n_windows), dtype=np.float32)).cuda()
+            _bit_identical(gene_project_cuda(x, None, gpd, gate=False), gene_project_plain(x, None, gpd, gate=False),
+                           f"K3 ungated, {rows} rows x {gpd.total} genes")
+    if sorted(seen) != [0, 1, 2, 3]:
+        raise AssertionError(f"gene counts modulo 4 covered: {seen}")
+    log(f"K3 edge: 1, 2, 133 and 1024 rows at gene counts {sorted(seen.values())} (0, 1, 2, 3 modulo 4): "
+        f"ungated bit-identical")
+
+
 def phase_gene_kernels(write_rate: float) -> dict:
     import torch
 
@@ -581,7 +740,7 @@ def phase_gene_kernels(write_rate: float) -> dict:
     plain_ms = cuda_ms(lambda: gene_project_plain(x, thr, gpd, gate=True))
     out_gb = KERNEL_ROWS * gpd.total * 4 / 1e9
     log(f"K3 time (gated): kernel {ms:.3f} ms ({out_gb / ms:.3f} TB/s of output, {out_gb / ms * 1e3 / write_rate:.2%} "
-        f"of the measured write rate), plain {plain_ms:.3f} ms (median of 5, CUDA events)")
+        f"of the measured write rate), plain {plain_ms:.3f} ms (CUDA events around 10 calls in a row, median of 5 runs)")
     err = max(bench["ungated"], bench["gated"])
     del bench, x, thr
 
@@ -598,12 +757,17 @@ def phase_gene_kernels(write_rate: float) -> dict:
         f"kernel {syn_ms:.3f} ms, plain {syn_plain_ms:.3f} ms")
     err = max(err, syn["ungated"], syn["gated"])
     del syn, x, thr
+    _k3_edges(var)
     torch.cuda.empty_cache()
     return {
         "name": "gene_project", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/gene_project.cu",
         "replaces": "infercnvpy_tpu/ops/pallas_gene.py:127", "launches": None,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ms_synthetic": syn_ms,
-        "plain_ms_synthetic": syn_plain_ms,
+        "plain_ms_synthetic": syn_plain_ms, "library_ms": None,
+        # windows and thresholds read once, gene columns written once, the group tables read once; the
+        # group sums, the select's 4 passes and one subtraction and compare per group
+        **bound(KERNEL_ROWS * (1793 + 1 + 19910) * 4 + (3 * 1991 + 19910) * 4,
+                KERNEL_ROWS * (19910 + 1991 * (4 * 2 + 3))),
     }
 
 
@@ -653,22 +817,30 @@ def phase_select_kernels() -> list[dict]:
     for k in (0, w // 2, w - 1):
         _bit_identical(row_kth_smallest_cuda(x, k), row_kth_smallest_plain(x, k),
                        f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}")
-        k5[k] = (cuda_ms(lambda: row_kth_smallest_cuda(x, k)), cuda_ms(lambda: row_kth_smallest_plain(x, k)))
+        # the one PyTorch call for the same function (1-based k): a yardstick, never called by the port
+        _bit_identical(torch.kthvalue(x, k + 1, dim=1).values, row_kth_smallest_plain(x, k),
+                       f"torch.kthvalue ({KERNEL_ROWS}, {w}), k={k}")
+        k5[k] = (cuda_ms(lambda: row_kth_smallest_cuda(x, k)), cuda_ms(lambda: row_kth_smallest_plain(x, k)),
+                 cuda_ms(lambda: torch.kthvalue(x, k + 1, dim=1)))
         log(f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}: bit-identical; kernel {k5[k][0]:.3f} ms, "
-            f"plain {k5[k][1]:.3f} ms")
+            f"plain {k5[k][1]:.3f} ms, torch.kthvalue {k5[k][2]:.3f} ms")
     del x
     return [
         {
             "name": "row_median_weighted", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",
             "replaces": "infercnvpy_tpu/ops/pallas_select.py:154", "launches": None, "max_abs_err": 0.0,
             "ms": k4["even"][1], "plain_ms": k4["even"][2], "ms_odd_total": k4["odd"][1],
-            "plain_ms_odd_total": k4["odd"][2],
+            "plain_ms_odd_total": k4["odd"][2], "library_ms": None,
+            **bound(KERNEL_ROWS * (gpd.n_groups + 1) * 4 + gpd.n_groups * 4, KERNEL_ROWS * gpd.n_groups * 4 * 2),
         },
         {
             "name": "row_kth_smallest", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",
             "replaces": "infercnvpy_tpu/ops/pallas_select.py:137", "launches": None, "max_abs_err": 0.0,
             "ms": k5[w // 2][0], "plain_ms": k5[w // 2][1],
             "ms_by_k": {str(k): v[0] for k, v in k5.items()}, "plain_ms_by_k": {str(k): v[1] for k, v in k5.items()},
+            "library_ms": k5[w // 2][2], "library": "torch.kthvalue(x, k + 1, dim=1)",
+            "library_ms_by_k": {str(k): v[2] for k, v in k5.items()},
+            **bound(KERNEL_ROWS * (w + 1) * 4, KERNEL_ROWS * w * 4 * 2),
         },
     ]
 
@@ -833,6 +1005,8 @@ def main() -> int:
     off_path = [kernels[1], *selects]
     for k in off_path:
         k["launches"] = e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]]
+    for k in [*on_path, *off_path, probe]:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(smi)
     # row_median, row_median_weighted and row_kth_smallest are ported and
     # checked, but the paths run their select inside fused_window and

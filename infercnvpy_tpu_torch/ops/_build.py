@@ -22,7 +22,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "check", "current_stream", "nvcc_path", "NVCC_FLAGS"]
+__all__ = ["library", "build", "bind", "compile_sources", "check", "current_stream", "nvcc_path", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,18 +34,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, ref2, gmap, small_off, out, stats, rows, width, n_windows, P, Q, step, window, single_ref,
-    # lfc_clip, inv_sum, stream
-    "fused_window_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    # x, out, rows, width, stream
-    "row_median_launch": (_P, _P, _I, _I, _P),
-    "fused_window_max_smem": (),
-    # x, wts, out, rows, width, total, stream
-    "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _P),
-    # x, out, rows, width, k, stream
-    "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _P),
-    # x, thr, g_lo, g_hi, g_counts, gidx, out, rows, n_windows, n_groups, n_covered, gate, stream
-    "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, ref2, tasks, tile_ptr, wtab, out, stats, rows, width, n_windows, n_tasks, n_small, packed_len, Q,
+    # step, window, single_ref, n_tiles, tile_conv, plane_stride, row_stage, tail_off, smem_bytes, max_smem,
+    # threads, lfc_clip, inv_sum, stream
+    "fused_window_launch": (_P, _P, _P, _P, _P, _P, _P, *([_I] * 18), _F, _F, _P),
+    # x, out, rows, width, threads, stream
+    "row_median_launch": (_P, _P, _I, _I, _I, _P),
+    "fused_window_smem_budget": (_I,),
+    # x, wts, out, rows, width, total, threads, stream
+    "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, rows, width, k, threads, stream
+    "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _I, _P),
+    # x, thr, g_lo, g_hi, g_counts, gidx, packed4, out, rows, n_windows, n_groups, n_covered, packed_stride,
+    # gate, max_smem, threads, stream
+    "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "gene_project_max_smem": (),
     # x, out, n, ld, w, mode, stream
     "write_probe_launch": (_P, _P, _I, _I, _I, _I, _P),
@@ -93,38 +95,49 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return errs
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if no library for the current sources exists; return its path."""
-    out = BUILD_DIR / f"libinfercnv_kernels-{_digest()}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_sources(cus: list[Path], out: Path, verbose: bool = False) -> None:
+    """Compile the ``.cu`` files into the shared library ``out``: one ``nvcc -c`` each, all at once, then a link.
+
+    Works in a temporary directory beside ``out`` and renames the finished
+    library into place.  ``verbose`` prints what ``ptxas -v`` says.
+    """
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        cus = [s for s in SOURCES if s.endswith(".cu")]
-        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in cus]
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{c.stem}.o") for c in cus]
         ptxas = ["-Xptxas", "-v"] if verbose else []
-        errs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(CSRC / s), "-o", o] for s, o in zip(cus, objs)])
+        errs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", str(c), "-o", o] for c, o in zip(cus, objs)])
         lib = str(Path(tmp) / "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         if verbose:
             print("".join(errs))
         os.replace(lib, out)
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if no library for the current sources exists; return its path."""
+    out = BUILD_DIR / f"libinfercnv_kernels-{_digest()}.so"
+    if not out.exists():
+        compile_sources([CSRC / s for s in SOURCES if s.endswith(".cu")], out, verbose)
     return out
+
+
+def bind(lib: ctypes.CDLL, signatures: dict | None = None) -> ctypes.CDLL:
+    """Give the C entry points of ``lib`` their argument types (``signatures``: this tree's by default)."""
+    for name, args in (_SIGNATURES if signatures is None else signatures).items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind(ctypes.CDLL(str(build())))
     return _LIB
 
 

@@ -28,7 +28,7 @@ from .infercnv_kernel import center_smooth_median, packed_width, small_offsets
 
 __all__ = [
     "fused_center_smooth_median", "fused_center_smooth_median_cuda", "fused_center_smooth_median_plain",
-    "final_gather_map",
+    "final_gather_map", "window_tasks", "tile_task_ranges", "pyramid_weights", "stage_plan", "staged_windows_emulated",
 ]
 
 
@@ -58,8 +58,8 @@ def _assembly_runs(plan: WindowPlan) -> list[tuple[int, int]]:
     """Maximal (src_start, length) runs of :func:`final_gather_map`.
 
     The map is piecewise consecutive (one run per chromosome; adjacent small
-    chromosomes merge), which is why consecutive threads of the kernel read
-    consecutive columns.
+    chromosomes merge), which is why the kernel's tasks (:func:`window_tasks`)
+    can take aligned groups of neighbouring conv positions.
     """
     gmap = final_gather_map(plan)
     runs: list[tuple[int, int]] = []
@@ -71,6 +71,183 @@ def _assembly_runs(plan: WindowPlan) -> list[tuple[int, int]]:
         runs.append((int(gmap[i]), j - i))
         i = j
     return runs
+
+
+#: conv positions per kernel task (``kGroup`` in ``csrc/fused_window.cu``)
+GROUP = 4
+#: floats the kernel may read past the last staged plane (its 16-byte look-ahead)
+STAGE_PAD = 8
+
+
+def window_tasks(plan: WindowPlan) -> np.ndarray:
+    """(n_tasks, 4) int32 task table of the kernel, from :func:`final_gather_map`.
+
+    A regular task ``(k_first, a4, j0 | j1 << 8, 0)`` is the aligned group of
+    conv positions ``a4 .. a4 + 3`` (``a4 % 4 == 0``) of which ``j0 <= j < j1``
+    are windows of one chromosome run: position ``a4 + j`` is final window
+    ``k_first + j - j0``.  A small-chromosome task ``(k, col_a, -1, col_b)`` is
+    the mean of packed columns ``[col_a, col_b)``.  Every final window belongs
+    to exactly one task.  The regular tasks come first, sorted by ``a4`` (so a
+    column tile's tasks are one slice, :func:`tile_task_ranges`), then the
+    small-chromosome tasks.
+    """
+    gmap = final_gather_map(plan)
+    P = _conv_region_windows(plan)
+    off = small_offsets(plan)
+    regular: list[tuple[int, int, int, int]] = []
+    small: list[tuple[int, int, int, int]] = []
+    k = 0
+    n = len(gmap)
+    while k < n:
+        g = int(gmap[k])
+        if g >= P:
+            j = g - P
+            small.append((k, int(off[j]), -1, int(off[j + 1])))
+            k += 1
+            continue
+        a4 = g - g % GROUP
+        e = k + 1
+        while e < n and int(gmap[e]) == int(gmap[e - 1]) + 1 and int(gmap[e]) < min(a4 + GROUP, P):
+            e += 1
+        j0 = g - a4
+        regular.append((k, a4, j0 | ((j0 + e - k) << 8), 0))
+        k = e
+    regular.sort(key=lambda t: (t[1], t[0]))
+    return np.asarray(regular + small, dtype=np.int32).reshape(-1, 4)
+
+
+def tile_task_ranges(tasks: np.ndarray, n_tiles: int, tile_conv: int) -> np.ndarray:
+    """(n_tiles + 1,) int32: tile ``i`` owns the regular tasks ``tasks[ptr[i]:ptr[i + 1]]`` (``a4`` in its range)."""
+    a4 = tasks[tasks[:, 2] >= 0, 1]
+    return np.searchsorted(a4, np.arange(n_tiles + 1) * tile_conv, side="left").astype(np.int32)
+
+
+def pyramid_weights(plan: WindowPlan) -> np.ndarray:
+    """(window,) float32 unnormalised pyramid weights ``min(r + 1, window - r)``."""
+    r = np.arange(plan.window_size)
+    return np.minimum(r + 1, plan.window_size - r).astype(np.float32)
+
+
+def stage_plan(plan: WindowPlan, shared_budget: int, max_smem: int) -> dict:
+    """How a block of the kernel stages a packed row of ``plan`` in shared memory.
+
+    The row goes through the conv positions in ``n_tiles`` column tiles of
+    ``tile_conv`` (a multiple of 4).  A tile stages ``plane_stride =
+    tile_conv + halo`` columns of each of the ``step`` phase planes, the halo
+    covering the ``ceil(window / step) - 1`` taps that reach past the tile's
+    last window and the kernel's 16-byte look-ahead, and with the first tile
+    the small-chromosome tail at ``tail_off`` (``-1``: it does not fit and the
+    kernel reads it from device memory).  Beside the stage, shared memory
+    holds the row's windows and, for any window / step other than 100 / 10,
+    the weight table.
+
+    ``shared_budget`` is what a block may use if two blocks are to share an
+    SM (one's loads then run under the other's arithmetic), ``max_smem`` the
+    most a block can have.  If the whole packed row fits ``shared_budget``,
+    or else ``max_smem``, it is staged as it is: one tile, the planes
+    ``Q = packed_len / step`` apart, the tail right behind them.  A wider row
+    takes the fewest tiles that fit ``shared_budget``, or if not even a
+    4-position tile does, ``max_smem``.  Returns ``n_tiles, tile_conv, plane_stride,
+    row_stage, tail_off, smem_bytes``; raises if nothing fits.
+    """
+    s, w = plan.step, plan.window_size
+    P = _conv_region_windows(plan)
+    tail = packed_width(plan) - plan.packed_len
+    tail4 = tail + (-tail % 4)
+    generic = (s, w) != (10, 100)
+    fixed = plan.n_windows + (w if generic else 0)
+    m = -(-w // s)
+    halo = 4 * (-(-m // 4)) + 4
+    whole = P + (-P % GROUP)  # one tile over all conv positions
+
+    def whole_row(budget: int) -> dict | None:
+        # the packed row as it is: planes Q apart, the tail right behind them
+        for with_tail in (True, False):
+            row_stage = plan.packed_len + (tail4 if with_tail else 0) + STAGE_PAD
+            if (row_stage + fixed) * 4 <= budget and (P or with_tail or not tail):
+                return dict(n_tiles=1, tile_conv=max(whole, GROUP), plane_stride=plan.packed_len // s,
+                            row_stage=row_stage, tail_off=plan.packed_len if with_tail else -1,
+                            smem_bytes=(row_stage + fixed) * 4)
+        return None
+
+    def tiles(budget: int) -> dict | None:
+        if not P:
+            return None
+        for with_tail in (True, False):
+            room = budget // 4 - fixed - STAGE_PAD - (tail4 if with_tail else 0)
+            tile = (room // s) // 4 * 4 - halo
+            if room < 0 or tile < GROUP:
+                continue
+            n_tiles = -(-P // tile)
+            tile = -(-P // n_tiles)  # balance the tiles
+            tile += -tile % GROUP
+            planes = s * (tile + halo)
+            row_stage = planes + (tail4 if with_tail else 0) + STAGE_PAD
+            return dict(n_tiles=n_tiles, tile_conv=tile, plane_stride=tile + halo, row_stage=row_stage,
+                        tail_off=planes if with_tail else -1, smem_bytes=(row_stage + fixed) * 4)
+        return None
+
+    shared_budget = min(shared_budget, max_smem)
+    got = whole_row(shared_budget) or whole_row(max_smem) or tiles(shared_budget) or tiles(max_smem)
+    if got is None and not P and (fixed + STAGE_PAD) * 4 <= max_smem:
+        # small chromosomes only and a tail beyond shared memory: stage nothing
+        return dict(n_tiles=1, tile_conv=GROUP, plane_stride=0, row_stage=STAGE_PAD, tail_off=-1,
+                    smem_bytes=(fixed + STAGE_PAD) * 4)
+    if got is None:
+        raise ValueError(
+            f"{plan.n_windows} windows with window {w} / step {s} leave no room for a row tile in "
+            f"{max_smem} B of shared memory"
+        )
+    return got
+
+
+def staged_windows_emulated(xc: np.ndarray, plan: WindowPlan, stage: dict) -> np.ndarray:
+    """The kernel's window stage in numpy, with the kernel's indexing (f64 sums).
+
+    ``xc`` is the centred, clipped packed matrix.  Walks the tiles and their
+    task slices as ``csrc/fused_window.cu`` does: fills a stage buffer of
+    ``row_stage`` per tile, reads every tap at the offset the kernel reads
+    it, and raises ``IndexError`` if a tap of a kept window lies outside what
+    the tile staged.  Returns the (rows, n_windows) windows before the median.
+    """
+    s, w = plan.step, plan.window_size
+    Q = plan.packed_len // s
+    tasks = window_tasks(plan)
+    n_small = int((tasks[:, 2] < 0).sum()) if len(tasks) else 0
+    ptr = tile_task_ranges(tasks, stage["n_tiles"], stage["tile_conv"])
+    wts = pyramid_weights(plan).astype(np.float64)
+    rows = xc.shape[0]
+    win = np.full((rows, plan.n_windows), np.nan)
+    ps, tail_off = stage["plane_stride"], stage["tail_off"]
+    for tile in range(stage["n_tiles"]):
+        c0 = tile * stage["tile_conv"]
+        buf = np.full((rows, stage["row_stage"]), np.nan)
+        ln = min(ps, Q - c0)
+        for t in range(s):
+            buf[:, t * ps : t * ps + ln] = xc[:, t * Q + c0 : t * Q + c0 + ln]
+        if tile == 0 and tail_off >= 0:
+            buf[:, tail_off : tail_off + xc.shape[1] - plan.packed_len] = xc[:, plan.packed_len :]
+        for k_first, a4, z, _ in tasks[ptr[tile] : ptr[tile + 1]]:
+            if not c0 <= a4 < c0 + stage["tile_conv"]:
+                raise IndexError(f"task at conv position {a4} is not in tile {tile}")
+            j0, j1 = z & 0xFF, z >> 8
+            for j in range(j0, j1):
+                acc = np.zeros(rows)
+                for t in range(s):
+                    for u in range(-(-(w - t) // s)):
+                        at = t * ps + (a4 - c0) + u + j
+                        if at >= stage["row_stage"]:
+                            raise IndexError(f"tap at {at} beyond the stage of {stage['row_stage']} floats")
+                        acc += wts[u * s + t] * buf[:, at]
+                win[:, k_first + j - j0] = acc / plan.pyramid_sum
+        if tile == 0:
+            for k, col_a, _, col_b in tasks[len(tasks) - n_small :]:
+                if tail_off >= 0:
+                    vals = buf[:, tail_off + col_a - plan.packed_len : tail_off + col_b - plan.packed_len]
+                else:
+                    vals = xc[:, col_a:col_b]
+                win[:, k] = vals.astype(np.float64).sum(1) / (col_b - col_a)
+    return win
 
 
 def _check_inputs(x: torch.Tensor, ref_min_max: torch.Tensor, plan: WindowPlan, n_ref: int) -> None:
@@ -93,10 +270,44 @@ def fused_center_smooth_median_plain(
     return x_res, x_res.sum(dim=1), (x_res * x_res).sum(dim=1), med
 
 
+#: (plan.cache_key, device, smem_limit) -> (stage plan, max_smem, tasks, tile_ptr, wtab), the tables on
+#: the device.  Keyed by the plan's content digest; ``tl.clear_transform_caches`` empties it.
+_device_tables: dict[tuple, tuple] = {}
+
+#: threads of a fused_window block (a multiple of 32, at most 512)
+THREADS = 512
+
+
+def _launch_plan(plan: WindowPlan, dev: torch.device, smem_limit: int | None):
+    """The stage plan for ``dev`` and the plan's tables on it, made and uploaded once per (plan, device, limit)."""
+    key = (plan.cache_key, str(dev), smem_limit)
+    hit = _device_tables.get(key)
+    if hit is None:
+        lib = _build.library()
+        max_smem = lib.fused_window_smem_budget(1)
+        shared = lib.fused_window_smem_budget(2)
+        if max_smem < 0 or shared < 0:
+            _build.check(-min(max_smem, shared), "fused_window")
+        limit = max_smem if smem_limit is None else min(max_smem, int(smem_limit))
+        stage = stage_plan(plan, min(shared, limit), limit)
+        tasks = window_tasks(plan)
+        arrays = (tasks, tile_task_ranges(tasks, stage["n_tiles"], stage["tile_conv"]), pyramid_weights(plan))
+        hit = (stage, max_smem, *(torch.from_numpy(a).to(dev) for a in arrays))
+        # later launches may run on other streams than the one that copied
+        torch.cuda.current_stream(dev).synchronize()
+        _device_tables[key] = hit
+    return hit
+
+
 def fused_center_smooth_median_cuda(
-    x: torch.Tensor, ref_min_max: torch.Tensor, plan: WindowPlan, *, lfc_clip: float, n_ref: int = 2
+    x: torch.Tensor, ref_min_max: torch.Tensor, plan: WindowPlan, *, lfc_clip: float, n_ref: int = 2,
+    smem_limit: int | None = None,
 ):
-    """Launch ``csrc/fused_window.cu`` (float32 CUDA tensors only); raises on any failure."""
+    """Launch ``csrc/fused_window.cu`` (float32 CUDA tensors only); raises on any failure.
+
+    ``smem_limit`` caps the shared memory the stage plan may use (bytes), to
+    drive narrow column tiles at a small shape; ``None`` takes the card's.
+    """
     _check_inputs(x, ref_min_max, plan, n_ref)
     dev = x.device
     if not (x.is_cuda and ref_min_max.device == dev):
@@ -113,21 +324,14 @@ def fused_center_smooth_median_cuda(
         return out, stats[:, 0], stats[:, 1], stats[:, 2]
     lib = _build.library()
     with torch.cuda.device(dev):
-        max_smem = lib.fused_window_max_smem()
-        if max_smem < 0:
-            _build.check(-max_smem, "fused_window")
-        if n_windows * 4 > max_smem:
-            raise ValueError(
-                f"{n_windows} windows need {n_windows * 4} B of shared memory per row; this card allows {max_smem}"
-            )
-        gmap = torch.as_tensor(final_gather_map(plan), device=dev)
-        small_off = torch.as_tensor(small_offsets(plan), device=dev)
+        stage, max_smem, tasks, tile_ptr, wtab = _launch_plan(plan, dev, smem_limit)
         s = plan.step
         err = lib.fused_window_launch(
-            x.data_ptr(), ref_min_max.data_ptr(), gmap.data_ptr(), small_off.data_ptr(), out.data_ptr(),
-            stats.data_ptr(), rows, x.shape[1], n_windows, _conv_region_windows(plan), plan.packed_len // s, s,
-            plan.window_size, int(n_ref == 1), float(lfc_clip), float(np.float32(1.0 / plan.pyramid_sum)),
-            _build.current_stream(dev),
+            x.data_ptr(), ref_min_max.data_ptr(), tasks.data_ptr(), tile_ptr.data_ptr(), wtab.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), rows, x.shape[1], n_windows, tasks.shape[0],
+            n_windows - plan.n_reg_windows, plan.packed_len, plan.packed_len // s, s, plan.window_size,
+            int(n_ref == 1), stage["n_tiles"], stage["tile_conv"], stage["plane_stride"], stage["row_stage"],
+            stage["tail_off"], stage["smem_bytes"], max_smem, THREADS, float(lfc_clip), float(np.float32(1.0 / plan.pyramid_sum)), _build.current_stream(dev),
         )
     _build.check(err, "fused_window")
     fused_center_smooth_median_cuda.launches += 1

@@ -23,6 +23,7 @@ by the same per-cell constant and the difference is the reference's.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +33,10 @@ from ..genome.plan import WindowPlan
 from . import _build
 from .select import row_median_weighted_plain
 
-__all__ = ["GeneProjectionData", "gene_projection_data", "gene_project", "gene_project_plain", "gene_project_cuda"]
+__all__ = [
+    "GeneProjectionData", "gene_projection_data", "gene_project", "gene_project_plain", "gene_project_cuda",
+    "packed_gidx", "unpack_gidx",
+]
 
 
 @dataclass(frozen=True)
@@ -46,6 +50,8 @@ class GeneProjectionData:
     gidx_sorted: np.ndarray  #: (n_covered,) group of each output gene column (monotone)
     covered_sorted: np.ndarray  #: (n_covered,) used-gene index of each output column
     total: int  #: number of covered genes (weighted rank count)
+    cache_key: str = ""  #: content digest of the plan the groups came from
+
 
     @property
     def n_groups(self) -> int:
@@ -77,6 +83,7 @@ def gene_projection_data(plan: WindowPlan) -> GeneProjectionData:
         gidx_sorted=inv[order].astype(np.int32),
         covered_sorted=covered[order].astype(np.int64),
         total=int(len(covered)),
+        cache_key=key,
     )
     _gpd_cache[key] = gpd
     return gpd
@@ -118,6 +125,84 @@ def gene_project_plain(
     return u[:, torch.as_tensor(gpd.gidx_sorted, dtype=torch.long, device=dev)]
 
 
+#: bits of a step between neighbouring columns' groups, and of the first group, in a packed entry
+STEP_BITS = 4
+FIRST_BITS = 31 - 3 * STEP_BITS
+
+
+def packed_gidx(gidx: np.ndarray) -> np.ndarray | None:
+    """(4, stride) int32 packed copies of the column → group table, or ``None`` if it does not pack.
+
+    The kernel writes four gene columns with one 16-byte store, from the first
+    16-byte aligned address of a row on; the ``h`` columns before it are
+    peeled.  Entry ``i`` of copy ``h`` holds the groups of columns
+    ``h + 4i .. h + 4i + 3`` as ``(first << 12) | step1 | step2 << 4 |
+    step3 << 8``, the steps being the differences between neighbouring
+    columns' groups.  :func:`gene_projection_data` numbers the groups in
+    column order, so its steps are 0 or 1.  A table with a negative step, a
+    step of 16 or more, or 2**19 or more groups returns ``None``; the kernel
+    then expands column by column.
+    """
+    gidx = np.asarray(gidx, dtype=np.int64)
+    n = len(gidx)
+    steps = np.diff(gidx)
+    if n and (steps.min(initial=0) < 0 or steps.max(initial=0) >= 1 << STEP_BITS or gidx.max() >= 1 << FIRST_BITS):
+        return None
+    stride = max(-(-n // 4), 1)
+    out = np.zeros((4, stride), dtype=np.int32)
+    for h in range(4):
+        n4 = max(n - h, 0) // 4
+        cols = h + 4 * np.arange(n4)
+        e = gidx[cols] << (3 * STEP_BITS)
+        for j in range(3):
+            e |= (gidx[cols + j + 1] - gidx[cols + j]) << (STEP_BITS * j)
+        out[h, :n4] = e
+    return out
+
+
+def unpack_gidx(packed: np.ndarray, h: int, n: int) -> np.ndarray:
+    """The groups of columns ``h .. h + 4 * ((n - h) // 4)`` from copy ``h``, as the kernel decodes them."""
+    n4 = max(n - h, 0) // 4
+    e = packed[h, :n4].astype(np.int64)
+    g = np.empty((n4, 4), np.int64)
+    g[:, 0] = e >> (3 * STEP_BITS)
+    for j in range(3):
+        g[:, j + 1] = g[:, j] + ((e >> (STEP_BITS * j)) & ((1 << STEP_BITS) - 1))
+    return g.reshape(-1)
+
+
+#: (plan digest of the groups, device) -> the four index tables on the device;
+#: ``tl.clear_transform_caches`` empties it.
+_device_tables: dict[tuple[str, str], tuple[torch.Tensor, ...]] = {}
+
+#: threads of a gene_project block (a multiple of 32, at most 1024)
+THREADS = 256
+
+
+def _tables_on(gpd: GeneProjectionData, dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """``max_smem`` of ``dev``, then ``g_lo, g_hi, g_counts, gidx`` and the packed ``gidx`` copies (or ``None``)
+    on it, uploaded once per (groups, device)."""
+    digest = gpd.cache_key
+    if not digest:  # groups built by hand, not by gene_projection_data
+        h = hashlib.sha256()
+        for a in (gpd.g_lo, gpd.g_hi, gpd.g_counts, gpd.gidx_sorted):
+            h.update(np.ascontiguousarray(a).tobytes())
+        digest = h.hexdigest()
+    key = (digest, str(dev))
+    hit = _device_tables.get(key)
+    if hit is None:
+        max_smem = _build.library().gene_project_max_smem()
+        if max_smem < 0:
+            _build.check(-max_smem, "gene_project")
+        arrays = (gpd.g_lo, gpd.g_hi, gpd.g_counts, gpd.gidx_sorted, packed_gidx(gpd.gidx_sorted))
+        hit = (max_smem, *(None if a is None else torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+                           for a in arrays))
+        # later launches may run on other streams than the one that copied
+        torch.cuda.current_stream(dev).synchronize()
+        _device_tables[key] = hit
+    return hit
+
+
 def gene_project_cuda(
     x_res: torch.Tensor, row_thr: torch.Tensor | None, gpd: GeneProjectionData, *, gate: bool
 ) -> torch.Tensor:
@@ -136,20 +221,18 @@ def gene_project_cuda(
     thr = row_thr.contiguous() if gate else out  # not read when ungated
     lib = _build.library()
     with torch.cuda.device(dev):
-        max_smem = lib.gene_project_max_smem()
-        if max_smem < 0:
-            _build.check(-max_smem, "gene_project")
-        need = (gpd.n_windows + gpd.n_groups) * 4
+        max_smem, g_lo, g_hi, g_counts, gidx, packed = _tables_on(gpd, dev)
+        need = (2 * gpd.n_windows + gpd.n_groups) * 4
         if need > max_smem:
             raise ValueError(
                 f"{gpd.n_windows} windows and {gpd.n_groups} coverage groups need {need} B of shared memory "
                 f"per row; this card allows {max_smem}"
             )
-        tables = [torch.as_tensor(a, dtype=torch.int32, device=dev)
-                  for a in (gpd.g_lo, gpd.g_hi, gpd.g_counts, gpd.gidx_sorted)]
         err = lib.gene_project_launch(
-            x_res.data_ptr(), thr.data_ptr(), *(t.data_ptr() for t in tables), out.data_ptr(), rows,
-            gpd.n_windows, gpd.n_groups, gpd.total, int(gate), _build.current_stream(dev),
+            x_res.data_ptr(), thr.data_ptr(), g_lo.data_ptr(), g_hi.data_ptr(), g_counts.data_ptr(),
+            gidx.data_ptr(), None if packed is None else packed.data_ptr(), out.data_ptr(), rows, gpd.n_windows,
+            gpd.n_groups, gpd.total, 0 if packed is None else packed.shape[1], int(gate), max_smem, THREADS,
+            _build.current_stream(dev),
         )
     _build.check(err, "gene_project")
     gene_project_cuda.launches += 1

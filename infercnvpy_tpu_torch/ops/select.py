@@ -11,10 +11,13 @@ lower bits flipped; -0 sorts just below +0).  The map is an involution.
 
 * the ``*_plain`` versions sort the keys (any device, f32 or f64);
 * the ``*_cuda`` versions launch ``csrc/row_median.cu`` and
-  ``csrc/row_select.cu`` (f32, CUDA): one block per row, bisection over the
-  keys with block-wide (weighted) counts — the same ``__device__`` select
-  routine as the fused and gene kernels (``csrc/select.cuh``).
-  Both return bit-identical results on the same input.
+  ``csrc/row_select.cu`` (f32, CUDA): one block per row, a 4-pass radix
+  select over the keys with (weighted) 256-bin histograms — the same
+  ``__device__`` select routine as the fused and gene kernels
+  (``csrc/select.cuh``).  Both return bit-identical results on the same input;
+* :func:`radix_select_emulated` repeats that routine's arithmetic (digits,
+  histograms, bin scan, the two ranks of an even total) in numpy, so the CPU
+  tests can hold the algorithm against the key-sort versions.
 
 Each dispatcher takes the kernel for a CUDA tensor (f32 only; anything else
 raises) and the plain version for a CPU tensor.
@@ -22,6 +25,7 @@ raises) and the plain version for a CPU tensor.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -30,10 +34,14 @@ __all__ = [
     "row_median", "row_median_plain", "row_median_cuda",
     "row_median_weighted", "row_median_weighted_plain", "row_median_weighted_cuda",
     "row_kth_smallest", "row_kth_smallest_plain", "row_kth_smallest_cuda",
-    "float_key", "key_to_float",
+    "float_key", "key_to_float", "radix_select_emulated", "median_ranks",
 ]
 
 _INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+#: threads of a block of the standalone select kernels (a multiple of 32, at most 1024)
+THREADS = 256
+RADIX_BITS = 8  #: ``kRadixBits`` of ``csrc/select.cuh``
 
 
 def float_key(x: torch.Tensor) -> torch.Tensor:
@@ -81,7 +89,7 @@ def row_median_cuda(x: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.row_median_launch(x.data_ptr(), out.data_ptr(), n, w, _build.current_stream(x.device))
+        err = lib.row_median_launch(x.data_ptr(), out.data_ptr(), n, w, THREADS, _build.current_stream(x.device))
     _build.check(err, "row_median")
     row_median_cuda.launches += 1
     return out
@@ -152,7 +160,7 @@ def row_median_weighted_cuda(x: torch.Tensor, weights) -> torch.Tensor:
     lib = _build.library()
     with torch.cuda.device(x.device):
         err = lib.row_median_weighted_launch(
-            x.data_ptr(), wts.data_ptr(), out.data_ptr(), n, w, total, _build.current_stream(x.device)
+            x.data_ptr(), wts.data_ptr(), out.data_ptr(), n, w, total, THREADS, _build.current_stream(x.device)
         )
     _build.check(err, "row_median_weighted")
     row_median_weighted_cuda.launches += 1
@@ -194,7 +202,9 @@ def row_kth_smallest_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
         return out
     lib = _build.library()
     with torch.cuda.device(x.device):
-        err = lib.row_kth_smallest_launch(x.data_ptr(), out.data_ptr(), n, w, k, _build.current_stream(x.device))
+        err = lib.row_kth_smallest_launch(
+            x.data_ptr(), out.data_ptr(), n, w, k, THREADS, _build.current_stream(x.device)
+        )
     _build.check(err, "row_kth_smallest")
     row_kth_smallest_cuda.launches += 1
     return out
@@ -208,3 +218,66 @@ def row_kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
     if x.is_cuda:
         return row_kth_smallest_cuda(x, k)
     return row_kth_smallest_plain(x, k)
+
+
+def median_ranks(total: int) -> tuple[int, int]:
+    """The two 0-based ranks an ``np.median`` over ``total`` values averages (equal for an odd total)."""
+    k_hi = total // 2
+    return (k_hi if total % 2 else k_hi - 1), k_hi
+
+
+def _scan_bins(hist: np.ndarray, k: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per row: the smallest bin ``d`` with ``hist[:d + 1].sum() > k``, and ``k`` minus the bins before it."""
+    cum = np.cumsum(hist, axis=1)
+    if not (cum[:, -1] > k).all():
+        raise ValueError("rank beyond the weight the histogram holds")
+    d = (cum > k[:, None]).argmax(axis=1)
+    before = np.where(d > 0, cum[np.arange(len(d)), np.maximum(d - 1, 0)], 0)
+    return d, k - before
+
+
+def radix_select_emulated(x: np.ndarray, weights, rank_lo: int, rank_hi: int) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/select.cuh::block_select2`` in numpy: per row the elements of ranks ``rank_lo <= rank_hi``.
+
+    ``x`` is (rows, w) float32; ``weights`` is ``None`` (every value counts
+    once) or (w,) non-negative integers (value ``i`` counts ``weights[i]``
+    times, zero drops it).  Most-significant-digit radix select on the
+    order-preserving unsigned keys, :data:`RADIX_BITS` bits a pass: a pass
+    adds the weight of every value that still matches a rank's prefix to that
+    rank's histogram, then scans the bins for the digit holding the rank.  The
+    two ranks share a histogram while their prefixes agree and get one each
+    from the pass after the one in which they part.  Returns the two (rows,)
+    float32 arrays; both are elements of the row, bit for bit.
+    """
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    rows, w = x.shape
+    wts = np.ones(w, np.int64) if weights is None else np.asarray(weights, dtype=np.int64)
+    i = x.view(np.int32)
+    key = (i ^ (0x7FFFFFFF & (i >> 31))).view(np.uint32) ^ np.uint32(0x80000000)
+    live = np.broadcast_to(wts > 0, key.shape)
+    wmat = np.broadcast_to(wts, key.shape)
+    bins = 1 << RADIX_BITS
+    row_of = np.broadcast_to(np.arange(rows)[:, None], key.shape)
+    pre = {"lo": np.zeros(rows, np.uint32), "hi": np.zeros(rows, np.uint32)}
+    k = {"lo": np.full(rows, rank_lo, np.int64), "hi": np.full(rows, rank_hi, np.int64)}
+    for p in range(32 // RADIX_BITS):
+        shift = 32 - RADIX_BITS * (p + 1)
+        above = np.uint32(0) if p == 0 else np.uint32((0xFFFFFFFF << (shift + RADIX_BITS)) & 0xFFFFFFFF)
+        digit = ((key >> np.uint32(shift)) & np.uint32(bins - 1)).astype(np.int64)
+        parted = pre["lo"] != pre["hi"]
+        in_hi = live & ((key & above) == pre["hi"][:, None])
+        in_lo = live & ~in_hi & parted[:, None] & ((key & above) == pre["lo"][:, None])
+        hist = {}
+        for name, member in (("hi", in_hi), ("lo", in_lo)):
+            h = np.zeros((rows, bins), np.int64)
+            np.add.at(h, (row_of[member], digit[member]), wmat[member])
+            hist[name] = h
+        hist["lo"] = np.where(parted[:, None], hist["lo"], hist["hi"])
+        for name in ("hi", "lo"):
+            d, k[name] = _scan_bins(hist[name], k[name])
+            pre[name] = pre[name] | (d.astype(np.uint32) << np.uint32(shift))
+    out = []
+    for name in ("lo", "hi"):
+        s = (pre[name] ^ np.uint32(0x80000000)).view(np.int32)
+        out.append((s ^ (0x7FFFFFFF & (s >> 31))).view(np.float32))
+    return out[0], out[1]

@@ -92,10 +92,11 @@ def infercnv(
         Compute dtype.  ``None`` uses float64 when the input is float64 or
         integer (the reference's numpy promotion), else float32.
     device
-        One torch device (or its name).  ``None`` takes CUDA when
-        ``torch.cuda.is_available()``, else the CPU.  On CUDA, float32 runs
-        through the fused kernel; other dtypes and the CPU run the plain
-        PyTorch pipeline.
+        One torch device (or its name).  ``None`` means the CUDA device and
+        raises when ``torch.cuda.is_available()`` is false: pass
+        ``device="cpu"`` to run on the CPU.  On CUDA, float32 runs through
+        the fused kernel; other dtypes and the CPU run the plain PyTorch
+        pipeline.
     device_densify
         For sparse input, ship the CSR arrays and densify on the device
         instead of packing a dense block on the host.  ``None`` (default)
@@ -201,14 +202,19 @@ def infercnv(
 def clear_transform_caches() -> None:
     """Drop every memoized per-plan structure (counterpart of the JAX package's, ``tl/_infercnv.py:226-253``).
 
-    The port caches one thing across calls: the gene-coverage groups of each
-    window plan (``ops.gene._gpd_cache``, keyed by ``plan.cache_key``).  The
-    next call rebuilds what it needs; use from long-lived services between
-    unrelated workloads.
+    The port caches across calls, all keyed by ``plan.cache_key``: the
+    gene-coverage groups of each window plan (``ops.gene._gpd_cache``) and the
+    kernels' per-plan index tables on each device
+    (``ops.fused._device_tables``, ``ops.gene._device_tables``).  The next call
+    rebuilds what it needs; use from long-lived services between unrelated
+    workloads.
     """
+    from ..ops import fused as _fused
     from ..ops import gene as _gene
 
     _gene._gpd_cache.clear()
+    _gene._device_tables.clear()
+    _fused._device_tables.clear()
 
 
 def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, stats: dict | None = None) -> np.ndarray:
@@ -226,9 +232,14 @@ def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, sta
 
 
 def _pick_device(device) -> torch.device:
-    """One torch device: CUDA when available by default, as JAX takes its default backend."""
+    """One torch device; ``None`` is the CUDA device and raises where there is none."""
     if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "tl.infercnv runs on a CUDA device by default and torch.cuda.is_available() is False: "
+                'pass device="cpu" to run on the CPU'
+            )
+        return torch.device("cuda")
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise _not_ported("More than one device", "multi-device")

@@ -200,3 +200,85 @@ def test_row_median_kernel_bit_identical_on_gpu(cuda, shape):
     want = row_median_plain(x)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# the shapes where the staged kernel can break: generic window / step, widths
+# and row starts off 16 bytes, one row, the column-tiled path
+EDGE_CASES = [
+    ([700, 300, 90, 251], 250, 25, 2),
+    ([150, 41, 7, 90], 40, 7, 2),
+    ([150, 41, 7, 91], 100, 10, 1),
+    ([1300, 40, 700], 100, 10, 2),
+]
+EDGE_IDS = ["w250s25", "w40s7", "w100s10_odd_width", "w100s10_wide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["roomy", "squeezed"])
+@pytest.mark.parametrize("rows", [1, 133])
+@pytest.mark.parametrize("counts,window,step,n_ref", EDGE_CASES, ids=EDGE_IDS)
+def test_fused_kernel_edges_on_gpu(cuda, counts, window, step, n_ref, rows, tiled):
+    _, tplan, x, ref2, n_ref = _inputs(counts, window, step, n_ref, n_cells=rows + 1)
+    # drop the first row: with a width off a multiple of 4 the rows then start off 16 bytes
+    xd, rd = torch.from_numpy(x).to(cuda)[1:], torch.from_numpy(ref2).to(cuda)
+    limit = None
+    if tiled:
+        # half of what the row in one tile needs: column tiles
+        one = tf.stage_plan(tplan, 10**6, 10**6)
+        limit = one["smem_bytes"] // 2
+        assert tf.stage_plan(tplan, limit, limit)["n_tiles"] >= 2
+    got = tf.fused_center_smooth_median_cuda(xd, rd, tplan, lfc_clip=1.0, n_ref=n_ref, smem_limit=limit)
+    again = tf.fused_center_smooth_median_cuda(xd, rd, tplan, lfc_clip=1.0, n_ref=n_ref, smem_limit=limit)
+    want = tf.fused_center_smooth_median_plain(xd, rd, tplan, lfc_clip=1.0, n_ref=n_ref)
+    torch.cuda.synchronize()
+    for g, a, w, name in zip(got, again, want, ["x_res", "row_sum", "row_sumsq", "median"]):
+        atol = ATOL * tplan.n_windows if name.startswith("row_") else ATOL
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=atol, msg=name)
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32)), f"{name}: a rerun changed bits"
+
+
+@pytest.mark.cuda
+def test_fused_tables_are_cached_per_plan_and_cleared(cuda):
+    from infercnvpy_tpu_torch.tl import clear_transform_caches
+
+    _, tplan, x, ref2, n_ref = _inputs(SPEC_MIXED, 100, 10, 2, n_cells=4)
+    xd, rd = torch.from_numpy(x).to(cuda), torch.from_numpy(ref2).to(cuda)
+    clear_transform_caches()
+    tf.fused_center_smooth_median_cuda(xd, rd, tplan, lfc_clip=1.0, n_ref=n_ref)
+    assert len(tf._device_tables) == 1
+    first = next(iter(tf._device_tables.values()))[2].data_ptr()
+    tf.fused_center_smooth_median_cuda(xd, rd, build_window_plan(_var(SPEC_MIXED), 100, 10), lfc_clip=1.0, n_ref=n_ref)
+    assert len(tf._device_tables) == 1 and next(iter(tf._device_tables.values()))[2].data_ptr() == first
+    clear_transform_caches()
+    assert not tf._device_tables
+
+
+def _degenerate_rows(width):
+    x = np.random.default_rng(width).normal(size=(64, width)).astype(np.float32)
+    x[:16] = 0.75  # all equal
+    x[16:32] = np.where(x[16:32] > 0, np.float32(1.5), np.float32(-2.0))  # two values
+    x[32:40] = np.where(x[32:40] > 0, np.float32(0.0), np.float32(-0.0))
+    x[40, :] = np.inf
+    x[41, : width // 2] = -np.inf
+    x[42] = x[42] * np.float32(1e-42)  # denormals
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 255, 256, 257, 1793, 1794, 2049, 5000])
+def test_select_kernels_degenerate_rows_on_gpu(cuda, width):
+    from infercnvpy_tpu_torch.ops import select as ts
+
+    x = torch.from_numpy(_degenerate_rows(width)).to(cuda)
+    pairs = [(row_median_cuda(x), row_median_plain(x))]
+    for k in sorted({0, width // 2, width - 1}):
+        pairs.append((ts.row_kth_smallest_cuda(x, k), ts.row_kth_smallest_plain(x, k)))
+    rng = np.random.default_rng(1)
+    for parity in (0, 1):
+        wts = rng.integers(0, 9, size=width)
+        wts[0] += 1
+        wts[0] += (int(wts.sum()) + parity) % 2
+        pairs.append((ts.row_median_weighted_cuda(x, wts), ts.row_median_weighted_plain(x, wts)))
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), f"select {i} at width {width}"

@@ -327,3 +327,67 @@ def test_kth_smallest_kernel_bit_identical_on_gpu(cuda, k):
     want = row_kth_smallest_plain(x, k)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _plan_with_total_mod4(residue):
+    """A mixed plan whose number of covered genes is ``residue`` modulo 4."""
+    for extra in range(16):
+        tplan = build_window_plan(_var([150, 40, 7 + extra, 90]), 100, 10)
+        if tg.gene_projection_data(tplan).total % 4 == residue:
+            return tplan
+    raise AssertionError(f"no plan with n_covered = {residue} mod 4")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 7, 300])
+@pytest.mark.parametrize("residue", [0, 1, 2, 3])
+def test_gene_kernel_row_alignment_on_gpu(cuda, residue, rows):
+    """Rows start 0, 4, 8 or 12 bytes off a 16-byte address: ungated stays bit-identical."""
+    tplan = _plan_with_total_mod4(residue)
+    gpd = tg.gene_projection_data(tplan)
+    x, thr = _gene_inputs(tplan.n_windows, n_cells=rows, seed=residue)
+    xd, td = torch.from_numpy(x).to(cuda), torch.from_numpy(thr).to(cuda)
+    got = tg.gene_project_cuda(xd, td, gpd, gate=False)
+    want = tg.gene_project_plain(xd, td, gpd, gate=False)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, gpd.total) and gpd.total % 4 == residue
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_gene_tables_are_cached_per_plan_and_cleared(cuda):
+    from infercnvpy_tpu_torch.tl import clear_transform_caches
+
+    clear_transform_caches()
+    tplan = build_window_plan(_var(SPEC_MIXED), 100, 10)
+    x, thr = _gene_inputs(tplan.n_windows, n_cells=4)
+    xd, td = torch.from_numpy(x).to(cuda), torch.from_numpy(thr).to(cuda)
+    tg.gene_project_cuda(xd, td, tg.gene_projection_data(tplan), gate=True)
+    assert len(tg._device_tables) == 1
+    first = next(iter(tg._device_tables.values()))[4].data_ptr()
+    again = build_window_plan(_var(SPEC_MIXED), 100, 10)
+    tg.gene_project_cuda(xd, td, tg.gene_projection_data(again), gate=True)
+    assert len(tg._device_tables) == 1 and next(iter(tg._device_tables.values()))[4].data_ptr() == first
+    clear_transform_caches()
+    assert not tg._device_tables and not tg._gpd_cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [False, True], ids=["ungated", "gated"])
+def test_gene_kernel_takes_a_table_that_does_not_pack(cuda, gate):
+    """Groups numbered against column order have no packed copies: the kernel expands column by column."""
+    from dataclasses import replace
+
+    tplan = build_window_plan(_var(SPEC_MIXED), 100, 10)
+    gpd = tg.gene_projection_data(tplan)
+    flipped = replace(
+        gpd, g_lo=gpd.g_lo[::-1].copy(), g_hi=gpd.g_hi[::-1].copy(), g_counts=gpd.g_counts[::-1].copy(),
+        gidx_sorted=(gpd.n_groups - 1 - gpd.gidx_sorted).astype(np.int32), cache_key="",
+    )
+    assert tg.packed_gidx(flipped.gidx_sorted) is None
+    x, thr = _gene_inputs(tplan.n_windows, n_cells=301)
+    xd, td = torch.from_numpy(x).to(cuda), torch.from_numpy(thr).to(cuda)
+    got = tg.gene_project_cuda(xd, td, flipped, gate=gate)
+    want = tg.gene_project_cuda(xd, td, gpd, gate=gate)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

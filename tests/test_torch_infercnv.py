@@ -44,14 +44,16 @@ def _both(adata_t, **kw):
     """Run both packages on copies of one port AnnData; returns (port, jax) results."""
     a_t = adata_t.copy()
     a_j = cnv.AnnData(X=adata_t.X.copy(), obs=adata_t.obs.copy(), var=adata_t.var.copy())
-    got = tcnv.tl.infercnv(a_t, inplace=False, **kw)
+    got = tcnv.tl.infercnv(a_t, inplace=False, device="cpu", **kw)
     want = cnv.tl.infercnv(a_j, inplace=False, mesh=False, **kw)
     return got, want
 
 
 def _chunk_thresholds(adata_t, chunksize, dynamic_threshold=1.5, **kw):
     """Per-row gate threshold from the port's ungated result."""
-    _, pre, _ = tcnv.tl.infercnv(adata_t.copy(), inplace=False, dynamic_threshold=None, chunksize=chunksize, **kw)
+    _, pre, _ = tcnv.tl.infercnv(
+        adata_t.copy(), inplace=False, device="cpu", dynamic_threshold=None, chunksize=chunksize, **kw
+    )
     pre = pre.toarray().astype(np.float64)
     thr = np.empty(pre.shape[0])
     for s in range(0, pre.shape[0], chunksize):
@@ -139,8 +141,8 @@ def test_bench_style_csr_batches_and_chunks(dtype):
 def test_batching_does_not_change_the_result(batch_cells):
     adata = _bench_adata(n_cells=300)
     kw = dict(reference_key="cell_type", reference_cat=["normal_a", "normal_b"], chunksize=128)
-    _, base, _ = tcnv.tl.infercnv(adata.copy(), inplace=False, **kw)
-    _, got, _ = tcnv.tl.infercnv(adata.copy(), inplace=False, batch_cells=batch_cells, **kw)
+    _, base, _ = tcnv.tl.infercnv(adata.copy(), inplace=False, device="cpu", **kw)
+    _, got, _ = tcnv.tl.infercnv(adata.copy(), inplace=False, device="cpu", batch_cells=batch_cells, **kw)
     _assert_same_csr(got, base)
 
 
@@ -149,9 +151,12 @@ def test_batching_does_not_change_the_result(batch_cells):
 def test_densify_and_pack_switches_give_the_same_csr(compress_results, device_densify):
     adata = _bench_adata(n_cells=300)
     kw = dict(reference_key="cell_type", reference_cat=["normal_a", "normal_b"], chunksize=128)
-    _, base, _ = tcnv.tl.infercnv(adata.copy(), inplace=False, device_densify=False, compress_results=False, **kw)
+    _, base, _ = tcnv.tl.infercnv(
+        adata.copy(), inplace=False, device="cpu", device_densify=False, compress_results=False, **kw
+    )
     _, got, _ = tcnv.tl.infercnv(
-        adata.copy(), inplace=False, device_densify=device_densify, compress_results=compress_results, **kw
+        adata.copy(), inplace=False, device="cpu", device_densify=device_densify, compress_results=compress_results,
+        **kw,
     )
     _assert_same_csr(got, base)
 
@@ -186,7 +191,7 @@ def test_validation_messages_identical(oligo, mutate, kw):
     with pytest.raises(ValueError) as want:
         cnv.tl.infercnv(a_j, mesh=False, **kw)
     with pytest.raises(ValueError) as got:
-        tcnv.tl.infercnv(a_t, **kw)
+        tcnv.tl.infercnv(a_t, device="cpu", **kw)
     assert str(got.value) == str(want.value)
 
 
@@ -205,7 +210,7 @@ def test_unported_options_raise(oligo, kw, item):
 @pytest.mark.parametrize("dtype", ["float16", np.int32, torch.bfloat16])
 def test_rejects_compute_dtypes_other_than_f32_f64(oligo, dtype):
     with pytest.raises(ValueError, match="float32 or float64"):
-        tcnv.tl.infercnv(oligo.copy(), dtype=dtype)
+        tcnv.tl.infercnv(oligo.copy(), dtype=dtype, device="cpu")
 
 
 def test_inplace_slots_and_progress(oligo):
@@ -321,7 +326,7 @@ def test_gene_values_inplace_layer_and_x_cnv_unchanged():
     layer = adata.layers["gene_values_cnv"]
     assert layer.shape == adata.shape and layer.dtype == np.float32
     _assert_same_csr(adata.obsm["X_cnv"], plain.obsm["X_cnv"])
-    _, res, genes = tcnv.tl.infercnv(adata.copy(), inplace=False, calculate_gene_values=True, **DIFF_KW)
+    _, res, genes = tcnv.tl.infercnv(adata.copy(), inplace=False, device="cpu", calculate_gene_values=True, **DIFF_KW)
     _assert_same_csr(res, plain.obsm["X_cnv"])
     npt.assert_array_equal(genes, layer)
 
@@ -330,7 +335,7 @@ def test_gene_values_inplace_layer_and_x_cnv_unchanged():
 def test_gene_values_do_not_depend_on_batching_or_result_pack(dynamic_threshold):
     adata = _bench_adata(n_cells=300)
     kw = dict(reference_key="cell_type", reference_cat=["normal_a", "normal_b"], chunksize=128,
-              dynamic_threshold=dynamic_threshold, calculate_gene_values=True, inplace=False)
+              dynamic_threshold=dynamic_threshold, calculate_gene_values=True, inplace=False, device="cpu")
     _, res0, base = tcnv.tl.infercnv(adata.copy(), compress_results=False, **kw)
     for batch_cells, pack in [(None, True), (128, True), (256, None), (384, False)]:
         _, res, got = tcnv.tl.infercnv(adata.copy(), batch_cells=batch_cells, compress_results=pack, **kw)
@@ -354,3 +359,14 @@ def test_result_pack_caps_are_per_matrix():
     assert s_g["d2h_bytes"] == s_x["d2h_bytes"]
     assert s_g["gene_d2h_bytes"] > 0
     assert {"gene_unpack_sec", "gene_scatter_sec"} <= set(s_g)
+
+
+def test_default_device_needs_a_gpu_and_cpu_is_explicit(oligo, monkeypatch):
+    """``device=None`` means the CUDA device: without one it raises and names ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(reference_key="cell_type", reference_cat=CATS)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tcnv.tl.infercnv(oligo.copy(), **kw)
+    adata = oligo.copy()
+    tcnv.tl.infercnv(adata, device="cpu", **kw)
+    assert adata.obsm["X_cnv"].shape == (adata.n_obs, 180)
