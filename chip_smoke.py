@@ -51,7 +51,22 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               for bit as without the option, chunk 0 against the CPU path,
               and a checkpoint resume of one of the two batches with the gene
               layer bit for bit
-9. report   — the card line, a JSON line of kernel numbers (each kernel
+9. downstream — (a) quality at a size with known answers: the synthetic
+              20,000 × 4,000 dataset (chr1 / chr19 / chr20 events in 60 %
+              malignant cells) through ``tl.infercnv`` → ``tl.pca`` →
+              ``pp.neighbors`` → ``tl.leiden`` → ``tl.cnv_score`` →
+              ``tl.ithcna`` → ``tl.ithgex`` → ``tl.umap`` → ``tl.tsne`` on
+              the card: cluster purity, the malignant / normal ``cnv_score``
+              ratio, PCA / kNN / connectivities / Leiden against the port's
+              CPU path, layouts finite, bit-identical on rerun and separating
+              the classes, products unchanged with TF32 switched on globally,
+              the Leiden library built from ``native/leiden.cpp`` at first
+              use; (b) walls at scale: the 102,400-cell run's ``X_cnv``
+              through ``tl.pca`` → ``pp.neighbors`` → ``tl.leiden`` →
+              ``tl.cnv_score`` → ``tl.umap``, each stage's wall, peak device
+              memory, the device idle share of one traced run, and
+              ``tl.tsne``'s ``max_cells`` refusal
+10. report  — the card line, a JSON line of kernel numbers (each kernel
               with its bytes, its bound on an H100 from those bytes and
               operations, its share of the bound and, where one PyTorch call
               computes the same function, that call's time), then
@@ -82,6 +97,9 @@ K3_RTOL, K3_ATOL = 1e-5, 1e-6
 GENE_CELLS = 30_000
 BATCH = 15_000
 E2E_KW = dict(lfc_clip=3, window_size=100, step=10, dynamic_threshold=1.5, chunksize=5000, batch_cells=None, dtype=None)
+DOWNSTREAM_CELLS = 20_000
+DOWNSTREAM_GENES = 4_000
+SYNTHETIC_CATS = ["Microglia/Macrophage", "Oligodendrocytes (non-malignant)"]
 
 
 def log(msg: str) -> None:
@@ -495,14 +513,16 @@ def phase_e2e() -> dict:
 def _trace_summary(path: Path, wall: float) -> dict:
     """Device busy time (union of kernel / copy / memset spans), kernel time and idle share of a trace."""
     events = json.loads(path.read_text())["traceEvents"]
-    spans, kernel_us, fused_us = [], 0.0, 0.0
+    spans, kernel_us, fused_us, by_name = [], 0.0, 0.0, {}
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
         spans.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
+        name = e.get("name", "")
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + float(e.get("dur", 0.0)) / 1e6
         if e["cat"] == "kernel":
             kernel_us += float(e.get("dur", 0.0))
-            if "fused_window" in e.get("name", ""):
+            if "fused_window" in name:
                 fused_us += float(e.get("dur", 0.0))
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -511,8 +531,9 @@ def _trace_summary(path: Path, wall: float) -> dict:
             end = b
     if not spans:
         raise AssertionError(f"the trace {path} holds no device activity")
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return {"busy_sec": busy / 1e6, "kernel_sec": kernel_us / 1e6, "fused_window_sec": fused_us / 1e6,
-            "idle_share": 1.0 - busy / 1e6 / wall, "n_device_events": len(spans)}
+            "idle_share": 1.0 - busy / 1e6 / wall, "n_device_events": len(spans), "top_device_sec": top}
 
 
 def phase_pipeline(e2e) -> dict:
@@ -661,6 +682,292 @@ def phase_parity(adata, reference) -> None:
     if not _csr_equal(first, second):
         raise AssertionError("two runs of the first 15000 cells gave different CSR results")
     log(f"rerun of the first 15000 cells: bit-identical CSR (nnz {first.nnz:,})")
+
+
+def _ari(a, b) -> float:
+    """Adjusted Rand index of two labelings, in numpy."""
+    _, ia = np.unique(np.asarray(a), return_inverse=True)
+    _, ib = np.unique(np.asarray(b), return_inverse=True)
+    table = np.zeros((ia.max() + 1, ib.max() + 1), dtype=np.int64)
+    np.add.at(table, (ia, ib), 1)
+
+    def pairs(x):
+        x = np.asarray(x, dtype=np.float64)
+        return float((x * (x - 1) / 2).sum())
+
+    sum_c, sum_a, sum_b = pairs(table), pairs(table.sum(axis=1)), pairs(table.sum(axis=0))
+    expected = sum_a * sum_b / pairs([len(ia)])
+    return (sum_c - expected) / ((sum_a + sum_b) / 2 - expected)
+
+
+def _purity(labels, malignant) -> dict:
+    """Each Leiden cluster of >= 50 cells: the share of its commoner class."""
+    labels, out = np.asarray(labels), {}
+    for label in np.unique(labels):
+        member = labels == label
+        if member.sum() >= 50:
+            share = float(malignant[member].mean())
+            out[str(label)] = max(share, 1.0 - share)
+    return out
+
+
+def _cluster_class(labels, malignant) -> np.ndarray:
+    """For each cell, whether its cluster is mostly malignant."""
+    labels = np.asarray(labels)
+    out = np.empty(len(labels), bool)
+    for label in np.unique(labels):
+        member = labels == label
+        out[member] = malignant[member].mean() >= 0.5
+    return out
+
+
+def _separation(emb: np.ndarray, labels: np.ndarray) -> float:
+    """Mean distance between class centroids over mean distance to the own centroid (tests/test_downstream.py)."""
+    classes = np.unique(labels)
+    cents = np.stack([emb[labels == c].mean(0) for c in classes])
+    m = len(classes)
+    inter = np.linalg.norm(cents[:, None] - cents[None, :], axis=-1).sum() / (m * (m - 1))
+    intra = np.mean([np.linalg.norm(emb[labels == c] - cents[i], axis=1).mean() for i, c in enumerate(classes)])
+    return float(inter / intra)
+
+
+def _timed(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _leiden_library_check(loaded_before: bool) -> str:
+    """The Leiden library was loaded at first use, from the build of this checkout's ``native/leiden.cpp``."""
+    import hashlib
+
+    from infercnvpy_tpu_torch import native
+
+    if loaded_before:
+        raise AssertionError("the Leiden library was loaded before the first tl.leiden call")
+    if native._LEIDEN_LIB is None:
+        raise AssertionError("tl.leiden ran without loading the native Leiden library")
+    src = Path(native.__file__).resolve().parent / "leiden.cpp"
+    tag = hashlib.sha256(repr(native.LEIDEN_FLAGS).encode() + src.read_bytes()).hexdigest()[:16]
+    want = native.BUILD_DIR / f"libinfercnv_leiden-{tag}.so"
+    if Path(native._LEIDEN_LIB._name) != want or not want.exists():
+        raise AssertionError(f"the Leiden library {native._LEIDEN_LIB._name} is not the build of {src} ({want})")
+    return want.name
+
+
+def _tf32_check(scores: np.ndarray, X_cnv) -> None:
+    """The slice's float32 products give the same bits with TF32 switched on globally: the port holds it off."""
+    import torch
+
+    from infercnvpy_tpu_torch.ops.knn import exact_knn
+    from infercnvpy_tpu_torch.ops.linalg import truncated_svd
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 products before the downstream phase")
+    off = exact_knn(scores, 15, device="cuda"), truncated_svd(X_cnv, 50, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = exact_knn(scores, 15, device="cuda"), truncated_svd(X_cnv, 50, device="cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip([*off[0], *off[1]], [*on[0], *on[1]]):
+        if not _bits_equal(a, b):
+            raise AssertionError("exact_knn / truncated_svd changed with TF32 switched on globally")
+    log("TF32: off for every float32 product of the slice (exact_knn and truncated_svd bit-identical with the "
+        "global flag on)")
+
+
+def phase_downstream_quality() -> dict:
+    """The downstream workflow on the card at a size with known answers, against the port's CPU path."""
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch import native
+    from infercnvpy_tpu_torch.ops.graph import fuzzy_connectivities
+    from infercnvpy_tpu_torch.ops.knn import exact_knn
+    from infercnvpy_tpu_torch.ops.linalg import truncated_svd
+
+    t = time.perf_counter()
+    adata = tcnv.datasets.synthetic_cnv_dataset(n_cells=DOWNSTREAM_CELLS, n_genes=DOWNSTREAM_GENES, seed=0)
+    malignant = (adata.obs["cell_type"] == "Malignant").values
+    log(f"downstream input: synthetic {DOWNSTREAM_CELLS} x {DOWNSTREAM_GENES}, {malignant.mean():.0%} malignant, "
+        f"made in {time.perf_counter() - t:.1f}s")
+
+    walls = {}
+    _reset_counts()
+    walls["infercnv"] = _timed(lambda: tcnv.tl.infercnv(adata, reference_key="cell_type", reference_cat=SYNTHETIC_CATS))
+    leiden_loaded = native._LEIDEN_LIB is not None
+    torch.cuda.reset_peak_memory_stats()
+    walls["pca"] = _timed(lambda: tcnv.tl.pca(adata))
+    walls["neighbors"] = _timed(lambda: tcnv.pp.neighbors(adata))
+    walls["leiden"] = _timed(lambda: tcnv.tl.leiden(adata))
+    lib = _leiden_library_check(leiden_loaded)
+    walls["cnv_score"] = _timed(lambda: tcnv.tl.cnv_score(adata))
+    walls["ithcna"] = _timed(lambda: tcnv.tl.ithcna(adata, "cnv_leiden"))
+    walls["ithgex"] = _timed(lambda: tcnv.tl.ithgex(adata, "cnv_leiden"))
+    walls["umap"] = _timed(lambda: tcnv.tl.umap(adata))
+    walls["tsne"] = _timed(lambda: tcnv.tl.tsne(adata))
+    peak = torch.cuda.max_memory_allocated()
+    launches = _read_counts()
+    if launches["fused_window"] < 1:
+        raise AssertionError("the downstream path on the card did not launch fused_window")
+    log(f"downstream walls at {DOWNSTREAM_CELLS:,} cells (s): " + json.dumps({k: round(v, 4) for k, v in walls.items()})
+        + f"; peak device memory after tl.infercnv {peak / 2**30:.3f} GiB; the path launched {launches}; "
+        f"Leiden library {lib}, loaded at first use")
+
+    labels = adata.obs["cnv_leiden"].values
+    sizes = adata.obs["cnv_leiden"].value_counts()
+    purity = _purity(labels, malignant)
+    worst = min(purity.values())
+    if worst < 0.95:
+        raise AssertionError(f"a Leiden cluster of >= 50 cells is only {worst:.2%} one class: {purity}")
+    score = adata.obs["cnv_score"].values
+    ratio = float(score[malignant].mean() / score[~malignant].mean())
+    if ratio < 3.0:
+        raise AssertionError(f"malignant / normal mean cnv_score {ratio:.2f} < 3")
+    ith = adata.obs.groupby("cnv_leiden", observed=True)[["ithcna", "ithgex"]].first()
+    if not (np.isfinite(ith["ithgex"]).any() and np.isfinite(ith["ithcna"]).any()):
+        raise AssertionError("no finite ithcna / ithgex score")
+    log(f"{len(sizes)} Leiden clusters, {len(purity)} of >= 50 cells, each >= {worst:.2%} one class; malignant / "
+        f"normal mean cnv_score {ratio:.2f}; ithcna / ithgex finite in {int(np.isfinite(ith['ithcna']).sum())} / "
+        f"{int(np.isfinite(ith['ithgex']).sum())} of {len(ith)} clusters")
+
+    # the card against the port's CPU path on the same X_cnv, stage by stage
+    X_cnv, scores = adata.obsm["X_cnv"], adata.obsm["X_cnv_pca"]
+    n = X_cnv.shape[0]
+    sv_card = np.sqrt(adata.uns["cnv_pca"]["variance"] * (n - 1))
+    scores_cpu, _, sv_cpu = truncated_svd(X_cnv, scores.shape[1], device="cpu")
+    np.testing.assert_allclose(sv_card, sv_cpu, rtol=1e-4)
+    sv_err = float(np.max(np.abs(sv_card - sv_cpu) / sv_cpu))
+    # each component's sign is arbitrary: align, then hold each column's relative L2 error
+    sign = np.where(np.sum(scores * scores_cpu, axis=0) < 0, -1.0, 1.0)
+    score_err = float(np.max(np.linalg.norm(scores * sign - scores_cpu, axis=0) / np.linalg.norm(scores_cpu, axis=0)))
+    if score_err > 1e-4:
+        raise AssertionError(f"PCA scores: a component differs from the CPU's by {score_err:.2e} (relative L2) > 1e-4")
+    k = adata.uns["cnv_neighbors"]["params"]["n_neighbors"]
+    d_card, i_card = exact_knn(scores, k, device="cuda")
+    d_cpu, i_cpu = exact_knn(scores, k + 1, device="cpu")
+    d_err = float(np.abs(np.sort(d_card, axis=1) - d_cpu[:, :k]).max())
+    tied = np.abs(d_cpu[:, k] - d_cpu[:, k - 1]) <= 1e-5 * np.maximum(1.0, d_cpu[:, k])
+    same = np.fromiter((set(i_card[r]) == set(i_cpu[r, :k]) for r in range(n)), bool, count=n)
+    agree = float(same[~tied].mean())
+    if agree < 0.999:
+        raise AssertionError(f"neighbour sets agree on only {agree:.4%} of the untied rows")
+    # the graph stage on the same kNN arrays (the card's), on the card and on the CPU
+    c_card = fuzzy_connectivities(d_card, i_card, device="cuda")
+    c_cpu = fuzzy_connectivities(d_card, i_card, device="cpu")
+    if not (np.array_equal(c_card.indptr, c_cpu.indptr) and np.array_equal(c_card.indices, c_cpu.indices)):
+        raise AssertionError("connectivities from the same kNN arrays: the card's pattern differs from the CPU's")
+    np.testing.assert_allclose(c_card.data, c_cpu.data, rtol=1e-4)
+    nz = c_cpu.data != 0
+    conn_err = float(np.max(np.abs(c_card.data[nz] - c_cpu.data[nz]) / np.abs(c_cpu.data[nz])))
+    # Leiden on the whole CPU path's graph (its own PCA, kNN and graph) against the card's labels.
+    # At resolution 1.0 each class splits into some 20-30 clusters along no planted structure, and
+    # graphs that differ in rounding move those splits, on untied rows as much as on tied ones, so
+    # the labels agree well short of ARI 1 (PERF.md, section 6). Held: the class each cluster
+    # stands for, cell by cell, and ARI over a bar below the H100 reading.
+    on_cpu = tcnv.AnnData(X=adata.X, obs=adata.obs[["cell_type"]].copy(), var=adata.var)
+    on_cpu.obsm["X_cnv"] = X_cnv
+    tcnv.tl.pca(on_cpu, device="cpu")
+    tcnv.pp.neighbors(on_cpu, device="cpu")
+    tcnv.tl.leiden(on_cpu)
+    cpu_labels = on_cpu.obs["cnv_leiden"].values
+    cpu_purity = min(_purity(cpu_labels, malignant).values())
+    if cpu_purity < 0.95:
+        raise AssertionError(f"a Leiden cluster of >= 50 cells on the CPU path is only {cpu_purity:.2%} one class")
+    class_agree = float((_cluster_class(labels, malignant) == _cluster_class(cpu_labels, malignant)).mean())
+    if class_agree < 0.999:
+        raise AssertionError(f"card and CPU Leiden clusters stand for the same class on only {class_agree:.4%} of cells")
+    ari = _ari(labels, cpu_labels)
+    ari_untied = _ari(np.asarray(labels)[~tied], np.asarray(cpu_labels)[~tied])
+    if ari < 0.8:
+        raise AssertionError(f"Leiden on the card's graph vs on the CPU path's graph: ARI {ari:.4f} < 0.8")
+    log(f"card vs CPU: PCA singular values max rel diff {sv_err:.2e} (bar 1e-4), scores max rel L2 diff per "
+        f"component {score_err:.2e} (bar 1e-4); neighbour sets equal on {agree:.4%} of {int((~tied).sum())} untied "
+        f"rows ({int(tied.sum())} rows tied at the k-th neighbour), sorted distances max |diff| {d_err:.2e}; "
+        f"connectivities from the same kNN arrays: same pattern ({c_card.nnz:,} entries), max rel diff "
+        f"{conn_err:.2e} (bar 1e-4); Leiden on the whole CPU path: {len(np.unique(cpu_labels))} clusters, each "
+        f">= {cpu_purity:.2%} one class, cluster class equal to the card's on {class_agree:.4%} of cells (bar "
+        f"99.9 %), ARI {ari:.4f} (bar 0.8), {ari_untied:.4f} on the untied rows")
+    _tf32_check(scores, X_cnv)
+
+    layouts = {}
+    for key, rerun in (("X_cnv_umap", lambda: tcnv.tl.umap(adata, inplace=False)),
+                       ("X_cnv_tsne", lambda: tcnv.tl.tsne(adata, inplace=False))):
+        emb = adata.obsm[key]
+        if emb.shape != (n, 2) or not np.isfinite(emb).all():
+            raise AssertionError(f"{key}: shape {emb.shape}, finite {np.isfinite(emb).all()}")
+        if not _bits_equal(np.asarray(rerun()), emb):
+            raise AssertionError(f"{key}: a rerun with the same seed gave other bits")
+        layouts[key] = _separation(emb, malignant)
+        if layouts[key] <= 2.0:
+            raise AssertionError(f"{key}: malignant vs normal separation {layouts[key]:.2f} <= 2")
+    log("layouts finite and bit-identical on rerun; malignant vs normal separation " + json.dumps(
+        {k: round(v, 3) for k, v in layouts.items()}))
+    torch.cuda.empty_cache()
+    return {"walls": walls, "peak_bytes": peak, "launches": launches, "purity_min": worst, "score_ratio": ratio,
+            "ari": ari, "class_agree": class_agree, "knn_agree": agree, "separation": layouts}
+
+
+def _downstream_chain(adata) -> dict:
+    import infercnvpy_tpu_torch as tcnv
+
+    return {
+        "pca": _timed(lambda: tcnv.tl.pca(adata, n_comps=50)),
+        "neighbors": _timed(lambda: tcnv.pp.neighbors(adata, n_neighbors=15)),
+        "leiden": _timed(lambda: tcnv.tl.leiden(adata)),
+        "cnv_score": _timed(lambda: tcnv.tl.cnv_score(adata)),
+        "umap": _timed(lambda: tcnv.tl.umap(adata)),
+    }
+
+
+def phase_downstream_scale(adata) -> dict:
+    """The 102,400-cell run's X_cnv through the downstream chain: walls, peak memory, idle share."""
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch import profiling
+
+    sub = tcnv.AnnData(X=adata.X, obs=adata.obs[["cell_type"]].copy(), var=adata.var)
+    sub.obsm["X_cnv"] = adata.obsm["X_cnv"]
+    torch.cuda.reset_peak_memory_stats()
+    walls = _downstream_chain(sub)
+    peak = torch.cuda.max_memory_allocated()
+    emb = sub.obsm["X_cnv_umap"]
+    if emb.shape != (N_CELLS, 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"X_cnv_umap at {N_CELLS} cells: shape {emb.shape}")
+    n_clusters = len(sub.obs["cnv_leiden"].cat.categories)
+    log(f"downstream walls at {N_CELLS} cells (s): " + json.dumps({k: round(v, 4) for k, v in walls.items()})
+        + f", total {sum(walls.values()):.3f}; peak device memory {peak / 2**30:.3f} GiB; "
+        f"{n_clusters} Leiden clusters, largest {int(sub.obs['cnv_leiden'].value_counts().iloc[0]):,} cells")
+    with tempfile.TemporaryDirectory() as td:
+        with profiling.trace(td):
+            t = time.perf_counter()
+            traced = _downstream_chain(sub)
+            wall = time.perf_counter() - t
+        summary = _trace_summary(Path(td) / profiling.TRACE_FILE, wall)
+    log(f"traced downstream chain: {wall:.3f}s wall (" + json.dumps({k: round(v, 4) for k, v in traced.items()})
+        + f"), device busy {summary['busy_sec']:.6f}s (kernels {summary['kernel_sec']:.6f}s), "
+        f"device idle {summary['idle_share']:.2%}; most device time: "
+        + json.dumps({k: round(v, 6) for k, v in summary["top_device_sec"].items()}))
+    try:
+        tcnv.tl.tsne(sub)
+    except ValueError as e:
+        if "max_cells" not in str(e):
+            raise
+        log(f"tl.tsne at {N_CELLS} cells refused: {e}")
+    else:
+        raise AssertionError(f"tl.tsne ran at {N_CELLS} cells instead of refusing above max_cells")
+    torch.cuda.empty_cache()
+    return {"walls": walls, "peak_bytes": peak, "traced_wall": wall, **summary}
 
 
 def _k3_case(plan, rows: int, seed: int) -> dict:
@@ -993,6 +1300,8 @@ def main() -> int:
     phase_bf16(e2e)
     phase_checkpoint(e2e)
     phase_parity(e2e["adata"], e2e["reference"])
+    downstream = phase_downstream_quality()
+    phase_downstream_scale(e2e["adata"])
     e2e_launches = e2e["launches"]
     del e2e
     gene_kernel = phase_gene_kernels(probe["write_gb_per_s"])
@@ -1000,11 +1309,15 @@ def main() -> int:
     gene_e2e = phase_gene_e2e()
     # each path's kernels take their launches from that path's run
     kernels[0]["launches"] = e2e_launches["fused_window"]
+    kernels[0]["launches_by_path"] = {
+        "infercnv_102400": e2e_launches["fused_window"], "gene_values_30000": gene_e2e["launches"]["fused_window"],
+        "downstream_20000": downstream["launches"]["fused_window"],
+    }
     gene_kernel["launches"] = gene_e2e["launches"]["gene_project"]
     on_path = [kernels[0], gene_kernel]
     off_path = [kernels[1], *selects]
     for k in off_path:
-        k["launches"] = e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]]
+        k["launches"] = e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]] + downstream["launches"][k["name"]]
     for k in [*on_path, *off_path, probe]:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(smi)

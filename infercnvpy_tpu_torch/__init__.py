@@ -7,12 +7,14 @@ never imports it or JAX.
 
 Ported so far: single-device ``tl.infercnv`` with every option (per-gene
 values, checkpoint/resume, reduced-precision transfer, the pipelined copy
-stream), ``profiling``, the data layer, and the write-bandwidth probe
-(``python -m infercnvpy_tpu_torch.ops.probe``).
+stream); the downstream workflow on one device (``tl.pca``,
+``pp.neighbors``, ``tl.leiden``, ``tl.cnv_score`` / ``ithcna`` / ``ithgex``,
+``tl.umap``, ``tl.tsne``); ``profiling``; the data layer; and the
+write-bandwidth probe (``python -m infercnvpy_tpu_torch.ops.probe``).
 """
 
-from . import datasets, profiling, tl
+from . import datasets, pp, profiling, tl
 from .core import AnnData, read_h5ad, write_h5ad
 
-__all__ = ["datasets", "profiling", "tl", "AnnData", "read_h5ad", "write_h5ad"]
+__all__ = ["datasets", "pp", "profiling", "tl", "AnnData", "read_h5ad", "write_h5ad"]
 __version__ = "0.1.0"

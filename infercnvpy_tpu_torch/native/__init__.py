@@ -1,16 +1,21 @@
-"""The host packers in C++ (``pack.cpp``), built with g++ at first use and loaded via ctypes.
+"""The port's native libraries, built with g++ at first use and loaded via ctypes.
 
-Counterpart of the pack half of ``infercnvpy_tpu/native/__init__.py``, with
-its own copy of the source.  The library goes into the gitignored
-``infercnvpy_tpu_torch/_build/`` under a name that carries a hash of the
-source and flags; the build writes a temporary file and renames it, so
-concurrent processes never load a partial library.  A failed build raises
-with g++'s stderr: nothing falls back to numpy.  The numpy versions in
-``ops/sparse_ingest.py`` and ``ops/infercnv_kernel.py`` are the references
-the tests hold these against.
+* ``pack.cpp`` — the host packers (counterpart of the pack half of
+  ``infercnvpy_tpu/native/__init__.py``);
+* ``leiden.cpp`` — Leiden clustering, the JAX package's source built with the
+  JAX package's flags, so both give the same labels for the same graph and
+  seed.
 
-Every wrapper checks dtypes, shapes and index bounds before it passes a
-pointer (the C scatters are unchecked), runs on ``torch.get_num_threads()``
+Each library goes into the gitignored ``infercnvpy_tpu_torch/_build/`` under
+a name that carries a hash of its source and flags; the build writes a
+temporary file and renames it, so concurrent processes never load a partial
+library.  A failed build raises with g++'s stderr: nothing falls back to
+numpy or Python.  The numpy versions in ``ops/sparse_ingest.py`` and
+``ops/infercnv_kernel.py`` and ``ops/leiden.py::leiden_plain`` are the
+references the tests hold these against.
+
+Every packer wrapper checks dtypes, shapes and index bounds before it passes
+a pointer (the C scatters are unchecked), runs on ``torch.get_num_threads()``
 OpenMP threads, releases the GIL for the call (ctypes does), counts its calls
 in ``.calls``, and can write into caller-owned ``out`` buffers, such as
 pinned host memory, which it overwrites completely.
@@ -27,11 +32,17 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "GXX_FLAGS"]
+__all__ = [
+    "library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "GXX_FLAGS",
+    "leiden_library", "build_leiden", "leiden", "LEIDEN_FLAGS",
+]
 
 _SRC = Path(__file__).resolve().parent / "pack.cpp"
+_LEIDEN_SRC = Path(__file__).resolve().parent / "leiden.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
+#: the flags of ``infercnvpy_tpu/native/__init__.py::_build_library``: the same code gives the same labels
+LEIDEN_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -53,18 +64,19 @@ _SIGNATURES = {
 _SUFFIX = {np.dtype(np.float32): "f32", np.dtype(np.float64): "f64"}
 
 _LIB = None
+_LEIDEN_LIB = None
 
 
-def build() -> Path:
-    """Compile ``pack.cpp`` if no library for the current source exists; return its path."""
-    tag = hashlib.sha256(repr(GXX_FLAGS).encode() + _SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libinfercnv_pack-{tag}.so"
+def _build(src: Path, stem: str, flags: tuple[str, ...]) -> Path:
+    """Compile ``src`` if no library for the current source and flags exists; return its path."""
+    tag = hashlib.sha256(repr(flags).encode() + src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{stem}-{tag}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, str(_SRC), "-o", tmp]
+    cmd = ["g++", *flags, str(src), "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
@@ -74,6 +86,16 @@ def build() -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build() -> Path:
+    """Compile ``pack.cpp`` if no library for the current source exists; return its path."""
+    return _build(_SRC, "infercnv_pack", GXX_FLAGS)
+
+
+def build_leiden() -> Path:
+    """Compile ``leiden.cpp`` if no library for the current source exists; return its path."""
+    return _build(_LEIDEN_SRC, "infercnv_leiden", LEIDEN_FLAGS)
 
 
 def library() -> ctypes.CDLL:
@@ -244,3 +266,41 @@ def dense_to_csr(arr) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 dense_to_csr.calls = 0
+
+
+def leiden_library() -> ctypes.CDLL:
+    """The loaded Leiden library (built on first call)."""
+    global _LEIDEN_LIB
+    if _LEIDEN_LIB is None:
+        lib = ctypes.CDLL(str(build_leiden()))
+        lib.leiden_cluster.restype = _I64
+        # indptr, indices, weights, n_nodes, resolution, seed, max_rounds, labels_out
+        lib.leiden_cluster.argtypes = [_I64P, _I32P, ctypes.POINTER(ctypes.c_double), _I64, ctypes.c_double,
+                                       ctypes.c_uint64, _I64, _I64P]
+        _LEIDEN_LIB = lib
+    return _LEIDEN_LIB
+
+
+def leiden(indptr, indices, weights, *, resolution: float, seed: int, max_rounds: int) -> np.ndarray:
+    """Leiden labels (int64, 0 = the largest cluster) of the undirected graph in CSR form.
+
+    The graph must be symmetric with sorted indices, as ``ops.leiden.leiden``
+    passes it; ``seed`` seeds the library's ``std::mt19937_64``.
+    """
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    n = len(indptr) - 1
+    if n < 0 or indptr[0] != 0 or indptr[-1] != len(indices) or len(weights) != len(indices) \
+            or np.any(np.diff(indptr) < 0):
+        raise ValueError(f"not a CSR graph: indptr of length {len(indptr)} over {len(indices)} indices, "
+                         f"{len(weights)} weights")
+    if len(indices) and (int(indices.min()) < 0 or int(indices.max()) >= n):
+        raise IndexError(f"neighbour index out of range for {n} nodes")
+    labels = np.empty(n, dtype=np.int64)
+    leiden_library().leiden_cluster(
+        indptr.ctypes.data_as(_I64P), indices.ctypes.data_as(_I32P),
+        weights.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n, float(resolution), int(seed),
+        int(max_rounds), labels.ctypes.data_as(_I64P),
+    )
+    return labels

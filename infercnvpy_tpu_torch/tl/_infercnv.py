@@ -40,16 +40,12 @@ import pandas as pd
 import scipy.sparse as sp
 import torch
 
-from .._util import _ensure_array, info, warn
+from .._util import _ensure_array, info, pick_device, warn
 from ..genome.plan import build_window_plan
 from ..ops.gene import gene_projection_data
 from ..ops.infercnv_kernel import _pack_lut, build_infercnv_fn, pack_columns, pack_csr, packed_width
 
 __all__ = ["infercnv", "clear_transform_caches"]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to infercnvpy_tpu_torch yet (ROADMAP.md: {item}).")
 
 
 def infercnv(
@@ -145,7 +141,7 @@ def infercnv(
         raise ValueError(
             "Genomic positions not found. There need to be `chromosome`, `start`, and `end` columns in `adata.var`. "
         )
-    dev = _pick_device(device)
+    dev = pick_device(device, "tl.infercnv")
 
     # gene selection: drop unannotated genes (warn) and excluded chromosomes
     chrom = adata.var["chromosome"]
@@ -229,22 +225,6 @@ def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, sta
     if stats is not None:
         stats["gene_reindex_sec"] = stats.get("gene_reindex_sec", 0.0) + (time.perf_counter() - t0)
     return out
-
-
-def _pick_device(device) -> torch.device:
-    """One torch device; ``None`` is the CUDA device and raises where there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "tl.infercnv runs on a CUDA device by default and torch.cuda.is_available() is False: "
-                'pass device="cpu" to run on the CPU'
-            )
-        return torch.device("cuda")
-    if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise _not_ported("More than one device", "multi-device")
-        device = device[0]
-    return torch.device(device)
 
 
 def _pick_dtype(expr, dtype) -> torch.dtype:
