@@ -66,6 +66,22 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               ``tl.cnv_score`` → ``tl.umap``, each stage's wall, peak device
               memory, the device idle share of one traced run, and
               ``tl.tsne``'s ``max_cells`` refusal
+11. annotate and plot — the path of a user with real data, after phase 9:
+              (a) a GENCODE-style gzipped GTF of >= 1,000,000 lines (the
+              20,000 genes of phase 4 and 40,000 others, each with 2
+              transcripts of 7 exons) written from a seed; (b)
+              ``io.genomic_position_from_gtf`` on phase 4's ``X`` and
+              ``obs`` with a bare ``var``: every gene annotated, positions
+              equal to phase 4's; (c) ``tl.infercnv`` on it: 7
+              ``fused_window`` launches, ``X_cnv`` and ``chr_pos``
+              bit-identical to phase 4's; (d) where matplotlib is installed
+              (decided once, with one line saying so), on Agg: the
+              102,400-cell ``pl.chromosome_heatmap`` (image = ``X_cnv`` in
+              group order, chromosome tick labels, PNG written),
+              ``pl.chromosome_heatmap_summary`` and ``pl.umap``, with no
+              figure left open; (e) the summary of phase 9a's synthetic
+              cells: chr1 loss and chr19 / chr20 gain in the malignant row;
+              (f) a JSON line of walls and the GTF's size
 10. report  — the card line, a JSON line of kernel numbers (each kernel
               with its bytes, its bound on an H100 from those bytes and
               operations, its share of the bound and, where one PyTorch call
@@ -100,6 +116,9 @@ E2E_KW = dict(lfc_clip=3, window_size=100, step=10, dynamic_threshold=1.5, chunk
 DOWNSTREAM_CELLS = 20_000
 DOWNSTREAM_GENES = 4_000
 SYNTHETIC_CATS = ["Microglia/Macrophage", "Oligodendrocytes (non-malignant)"]
+GTF_EXTRA_GENES = 40_000  # GENCODE's ~60,000 human genes, with the 20,000 of the AnnData
+GTF_TRANSCRIPTS, GTF_EXONS = 2, 7  # lines per gene: 1 + 2 × (1 + 7) = 17
+GTF_MIN_LINES = 1_000_000
 
 
 def log(msg: str) -> None:
@@ -109,18 +128,21 @@ def log(msg: str) -> None:
 T0 = time.perf_counter()
 
 
+# hg38 autosome lengths (Mb)
+CHR_MB = np.array([248, 242, 198, 190, 181, 171, 159, 145, 138, 134, 135, 133,
+                   114, 107, 102, 90, 83, 80, 59, 64, 47, 51], dtype=float)
+
+
 def make_var(n_genes: int, seed: int = 0):
     """Genome of the benchmark: 22 autosomes, genes proportional to chromosome length."""
     import pandas as pd
 
     rng = np.random.default_rng(seed)
-    sizes = np.array([248, 242, 198, 190, 181, 171, 159, 145, 138, 134, 135, 133,
-                      114, 107, 102, 90, 83, 80, 59, 64, 47, 51], dtype=float)
-    counts = np.maximum(1, (sizes / sizes.sum() * n_genes)).astype(int)
+    counts = np.maximum(1, (CHR_MB / CHR_MB.sum() * n_genes)).astype(int)
     counts[0] += n_genes - counts.sum()
     rows = []
     for c, k in enumerate(counts):
-        starts = np.sort(rng.integers(1, int(sizes[c] * 1e6), size=k))
+        starts = np.sort(rng.integers(1, int(CHR_MB[c] * 1e6), size=k))
         rows.extend((f"chr{c + 1}", int(s)) for s in starts)
     var = pd.DataFrame(rows, columns=["chromosome", "start"])
     var["end"] = var["start"] + 1000
@@ -914,7 +936,7 @@ def phase_downstream_quality() -> dict:
         {k: round(v, 3) for k, v in layouts.items()}))
     torch.cuda.empty_cache()
     return {"walls": walls, "peak_bytes": peak, "launches": launches, "purity_min": worst, "score_ratio": ratio,
-            "ari": ari, "class_agree": class_agree, "knn_agree": agree, "separation": layouts}
+            "ari": ari, "class_agree": class_agree, "knn_agree": agree, "separation": layouts, "adata": adata}
 
 
 def _downstream_chain(adata) -> dict:
@@ -938,6 +960,7 @@ def phase_downstream_scale(adata) -> dict:
 
     sub = tcnv.AnnData(X=adata.X, obs=adata.obs[["cell_type"]].copy(), var=adata.var)
     sub.obsm["X_cnv"] = adata.obsm["X_cnv"]
+    sub.uns["cnv"] = adata.uns["cnv"]
     torch.cuda.reset_peak_memory_stats()
     walls = _downstream_chain(sub)
     peak = torch.cuda.max_memory_allocated()
@@ -967,7 +990,186 @@ def phase_downstream_scale(adata) -> dict:
     else:
         raise AssertionError(f"tl.tsne ran at {N_CELLS} cells instead of refusing above max_cells")
     torch.cuda.empty_cache()
-    return {"walls": walls, "peak_bytes": peak, "traced_wall": wall, **summary}
+    return {"walls": walls, "peak_bytes": peak, "traced_wall": wall, **summary, "adata": sub}
+
+
+def write_gtf(path: Path, var, n_extra: int, seed: int = 11) -> int:
+    """A gzipped GENCODE-style GTF: ``var``'s genes at their positions and ``n_extra`` others, in genome order.
+
+    Each gene record (``gene_name`` its ``var`` name, a versioned ``gene_id``)
+    is followed by its transcripts and their exons. Returns the line count.
+    """
+    import gzip
+
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    chrom = rng.choice(len(CHR_MB), size=n_extra, p=CHR_MB / CHR_MB.sum())
+    start = (rng.random(n_extra) * CHR_MB[chrom] * 1e6).astype(np.int64) + 1
+    extra = pd.DataFrame({"chromosome": [f"chr{c + 1}" for c in chrom], "start": start,
+                          "end": start + rng.integers(500, 200_000, size=n_extra)},
+                         index=[f"novel_{j}" for j in range(n_extra)])
+    genes = pd.concat([var[["chromosome", "start", "end"]], extra])
+    genes["num"] = genes["chromosome"].str.slice(3).astype(int)
+    genes = genes.sort_values(["num", "start"], kind="stable")
+    version = rng.integers(1, 20, size=len(genes))
+    strand = np.where(rng.random(len(genes)) < 0.5, "+", "-")
+    lines = ["##description: evidence-based annotation of the human genome, made from a seed\n",
+             "##provider: GENCODE\n", "##format: gtf\n"]
+    for k, (name, c, s, e) in enumerate(zip(genes.index, genes["chromosome"], genes["start"], genes["end"])):
+        head = f"{c}\tHAVANA\t"
+        tail = f"\t.\t{strand[k]}\t.\tgene_id \"ENSG{k:011d}.{version[k]}\"; gene_type \"protein_coding\"; "
+        lines.append(f"{head}gene\t{s}\t{e}{tail}gene_name \"{name}\"; level 2;\n")
+        step = max(1, (e - s) // GTF_EXONS)
+        for tr in range(GTF_TRANSCRIPTS):
+            tid = f"transcript_id \"ENST{k * GTF_TRANSCRIPTS + tr:011d}.1\"; "
+            lines.append(f"{head}transcript\t{s}\t{e}{tail}{tid}gene_name \"{name}\"; level 2;\n")
+            for x in range(GTF_EXONS):
+                a = s + x * step
+                lines.append(f"{head}exon\t{a}\t{min(e, a + step // 2)}{tail}{tid}gene_name \"{name}\"; "
+                             f"exon_number {x + 1}; level 2;\n")
+    with gzip.open(path, "wt", compresslevel=1) as fh:
+        fh.write("".join(lines))
+    return len(lines)
+
+
+def _plots(big, synthetic, figdir: Path) -> dict:
+    """The 102,400-cell heatmap, summary and UMAP plots, then the synthetic summary's CNV signal."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    import infercnvpy_tpu_torch as tcnv
+
+    prev, tcnv.settings.figdir = tcnv.settings.figdir, figdir
+    walls = {}
+    t = time.perf_counter()
+    try:
+        axes = tcnv.pl.chromosome_heatmap(big, groupby="cnv_leiden", show=False, save=".png")
+    finally:
+        tcnv.settings.figdir = prev
+    walls["heatmap"] = time.perf_counter() - t
+    image = np.ma.getdata(axes["heatmap_ax"].images[0].get_array())
+    order = np.argsort(big.obs["cnv_leiden"].cat.codes.to_numpy(), kind="stable")
+    if not _bits_equal(image, big.obsm["X_cnv"][order].toarray()):
+        raise AssertionError("the heatmap's image is not X_cnv's rows in the cnv_leiden order")
+    ticks = [label.get_text() for label in axes["heatmap_ax"].get_xticklabels()]
+    if ticks != list(big.uns["cnv"]["chr_pos"]):
+        raise AssertionError(f"heatmap tick labels {ticks} are not the chromosomes of chr_pos")
+    png = figdir / "heatmap.png"
+    if not (png.exists() and png.stat().st_size > 0):
+        raise AssertionError(f"{png} was not written")
+    del axes, image
+    t = time.perf_counter()
+    tcnv.pl.chromosome_heatmap_summary(big, groupby="cnv_leiden", show=False)
+    walls["summary"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tcnv.pl.umap(big, color="cnv_leiden", show=False)
+    walls["umap"] = time.perf_counter() - t
+    if plt.get_fignums():
+        raise AssertionError(f"figures left open after the plots: {plt.get_fignums()}")
+
+    # the synthetic data's planted events in the summary: chr1 loss, chr19 / chr20 gain in the malignant row
+    axes = tcnv.pl.chromosome_heatmap_summary(synthetic, groupby="cell_type", show=False)
+    M = np.ma.getdata(axes["heatmap_ax"].images[0].get_array())
+    rows = [text.get_text() for text in axes["groupby_ax"].texts]
+    chr_pos = synthetic.uns["cnv"]["chr_pos"]
+    names, starts = list(chr_pos), list(chr_pos.values()) + [M.shape[1]]
+    signal = {}
+    for chrom, sign in (("chr1", -1), ("chr19", 1), ("chr20", 1)):
+        i = names.index(chrom)
+        means = {g: float(M[r, starts[i] : starts[i + 1]].mean()) for r, g in enumerate(rows)}
+        mal = means.pop("Malignant")
+        if not (sign * mal > 0 and all(abs(mal) > abs(v) for v in means.values())):
+            raise AssertionError(f"{chrom}: malignant mean {mal:.4f} against the normal rows {means}")
+        signal[chrom] = {"Malignant": mal, **means}
+    if plt.get_fignums():
+        raise AssertionError(f"figures left open after the synthetic summary: {plt.get_fignums()}")
+    log(f"plots at {big.n_obs:,} cells: heatmap image = X_cnv in group order, {len(ticks)} chromosome ticks, "
+        f"{png.name} {png.stat().st_size:,} B; no figure left open; synthetic summary: " + json.dumps(
+            {c: {g: round(v, 4) for g, v in m.items()} for c, m in signal.items()}))
+    return walls
+
+
+def phase_annotate_and_plot(e2e: dict, synthetic, big) -> None:
+    """GTF → ``io.genomic_position_from_gtf`` → ``tl.infercnv`` on the card → the ``pl`` plots, at full size."""
+    import importlib.util
+
+    import pandas as pd
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch.io import _genepos
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    log("matplotlib " + ("is installed: the plots run" if has_mpl else
+                         "is not installed on this machine: the GTF and tl.infercnv parts run, the plots do not"))
+    var = make_var(N_GENES)
+    report: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        gtf = Path(td) / "gencode.annotation.gtf.gz"
+        t = time.perf_counter()
+        report["gtf_lines"] = write_gtf(gtf, var, GTF_EXTRA_GENES)
+        report["gtf_write_sec"] = time.perf_counter() - t
+        report["gtf_bytes"] = gtf.stat().st_size
+        if report["gtf_lines"] < GTF_MIN_LINES:
+            raise AssertionError(f"the GTF has {report['gtf_lines']:,} lines < {GTF_MIN_LINES:,}")
+
+        obs = e2e["adata"].obs[["cell_type"]].copy()
+        adata = tcnv.AnnData(X=e2e["expr"], obs=obs, var=pd.DataFrame(index=var.index.copy()))
+        read_gtf, spent = _genepos.read_gtf, []
+
+        def timed_read_gtf(*args, **kwargs):
+            t = time.perf_counter()
+            out = read_gtf(*args, **kwargs)
+            spent.append(time.perf_counter() - t)
+            return out
+
+        _genepos.read_gtf = timed_read_gtf
+        try:
+            t = time.perf_counter()
+            tcnv.io.genomic_position_from_gtf(gtf, adata)
+            report["annotate_sec"] = time.perf_counter() - t
+        finally:
+            _genepos.read_gtf = read_gtf
+        report["read_gtf_sec"] = spent[0]
+    got = adata.var[["chromosome", "start", "end"]]
+    if int(got.isna().to_numpy().sum()):
+        raise AssertionError(f"{int(got.isna().any(axis=1).sum())} genes left unannotated")
+    for col in ("chromosome", "start", "end"):
+        if got[col].tolist() != var[col].tolist():
+            raise AssertionError(f"var[{col!r}] from the GTF differs from phase 4's")
+    log(f"GTF: {report['gtf_lines']:,} lines, {report['gtf_bytes']:,} B gzipped, written in "
+        f"{report['gtf_write_sec']:.3f}s; genomic_position_from_gtf {report['annotate_sec']:.3f}s (read_gtf "
+        f"{report['read_gtf_sec']:.3f}s): {len(got):,} genes annotated, positions equal to phase 4's")
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tcnv.tl.infercnv(adata, reference=e2e["reference"], **E2E_KW)
+    torch.cuda.synchronize()
+    report["infercnv_sec"] = time.perf_counter() - t
+    launches = _read_counts()
+    n_batches = -(-N_CELLS // BATCH)
+    if launches["fused_window"] != n_batches:
+        raise AssertionError(f"fused_window ran {launches['fused_window']} times for {n_batches} batches")
+    if not _csr_equal(adata.obsm["X_cnv"], e2e["adata"].obsm["X_cnv"]):
+        raise AssertionError("X_cnv on the GTF-annotated AnnData differs from phase 4's")
+    if adata.uns["cnv"]["chr_pos"] != e2e["adata"].uns["cnv"]["chr_pos"]:
+        raise AssertionError("chr_pos on the GTF-annotated AnnData differs from phase 4's")
+    log(f"tl.infercnv on the GTF-annotated AnnData: {report['infercnv_sec']:.3f}s, launches {launches}, X_cnv and "
+        f"chr_pos bit-identical to phase 4's")
+    del adata
+
+    if has_mpl:
+        with tempfile.TemporaryDirectory() as td:
+            walls = _plots(big, synthetic, Path(td))
+        report.update({f"{k}_sec": v for k, v in walls.items()})
+    else:
+        report.update(heatmap_sec=None, summary_sec=None, umap_sec=None, plots="not run: no matplotlib")
+    report["cells"] = N_CELLS
+    print(json.dumps({"annotate_and_plot": report}), flush=True)
 
 
 def _k3_case(plan, rows: int, seed: int) -> dict:
@@ -1301,9 +1503,10 @@ def main() -> int:
     phase_checkpoint(e2e)
     phase_parity(e2e["adata"], e2e["reference"])
     downstream = phase_downstream_quality()
-    phase_downstream_scale(e2e["adata"])
+    scale = phase_downstream_scale(e2e["adata"])
+    phase_annotate_and_plot(e2e, downstream.pop("adata"), scale.pop("adata"))
     e2e_launches = e2e["launches"]
-    del e2e
+    del e2e, scale
     gene_kernel = phase_gene_kernels(probe["write_gb_per_s"])
     selects = phase_select_kernels()
     gene_e2e = phase_gene_e2e()

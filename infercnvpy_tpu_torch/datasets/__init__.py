@@ -3,10 +3,13 @@
 * :func:`synthetic_cnv_dataset` generates a deterministic scRNA-seq dataset
   with injected chromosome-scale CNV events;
 * :func:`oligodendroglioma` loads the bundled 183-cell h5ad when present, else
-  generates a synthetic stand-in with the same structure and caches it.
+  generates a synthetic stand-in with the same structure and caches it;
+* :func:`maynard2020_3k` loads the cached download, else downloads it from
+  the reference's release URL, else raises (or generates synthetic data when
+  ``allow_synthetic=True``).
 
-Both are byte-for-byte the JAX package's generators, so the same seed gives
-the same data in both packages.
+All three are byte-for-byte the JAX package's, so the same seed gives the
+same data in both packages.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from .. import settings
 from .._util import warn
 from ..core import AnnData, read_h5ad
 
-__all__ = ["oligodendroglioma", "synthetic_cnv_dataset"]
+__all__ = ["oligodendroglioma", "maynard2020_3k", "synthetic_cnv_dataset"]
 
 _DATA_DIR = Path(__file__).parent / "data"
 
@@ -132,3 +135,30 @@ def oligodendroglioma() -> AnnData:
     except Exception:
         pass
     return adata
+
+
+def maynard2020_3k(*, allow_synthetic: bool = False) -> AnnData:
+    """Maynard 2020 lung-cancer dataset, 3000 cells (reference: datasets/__init__.py:22-41).
+
+    Downloads from the reference's release URL on first use.  With
+    ``allow_synthetic=True`` a 3000-cell synthetic dataset is generated when
+    the download is impossible (offline environments).
+    """
+    url = "https://github.com/icbi-lab/infercnvpy/releases/download/d0.1.0/maynard2020_3k.h5ad"
+    filename = settings.datasetdir / "maynard2020_3k.h5ad"
+    if filename.exists():
+        return read_h5ad(filename)
+    try:
+        import urllib.request
+
+        settings.datasetdir.mkdir(parents=True, exist_ok=True)
+        urllib.request.urlretrieve(url, filename)  # noqa: S310
+        return read_h5ad(filename)
+    except Exception as e:
+        if allow_synthetic:
+            warn(f"Download failed ({e}); generating a synthetic 3000-cell stand-in.")
+            return synthetic_cnv_dataset(n_cells=3000, n_genes=6000, seed=2020)
+        raise RuntimeError(
+            f"Could not download {url} ({e}). Place the file at {filename} manually, "
+            "or call with allow_synthetic=True."
+        ) from e

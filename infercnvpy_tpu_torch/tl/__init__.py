@@ -3,8 +3,9 @@
 API surface mirrors the reference's ``tl`` namespace (reference:
 tl/__init__.py) without its scanpy / leidenalg / umap-learn / sklearn
 dependencies.  Entry points with a ``device`` argument run on the CUDA device
-when it is ``None`` and raise where there is none; ``leiden`` and
-``cnv_score`` run on the host, as in the JAX package.
+when it is ``None`` and raise where there is none; ``leiden``,
+``cnv_score`` and the ``copykat`` bridge to R run on the host, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ import numpy as np
 import pandas as pd
 
 from .._util import pick_device, warn
+from ._copykat import copykat
 from ._infercnv import clear_transform_caches, infercnv
 from ._scores import cnv_score, ithcna, ithgex
 
 __all__ = [
-    "infercnv", "cnv_score", "ithcna", "ithgex", "pca", "umap", "tsne", "leiden", "clear_transform_caches",
+    "infercnv", "copykat", "cnv_score", "ithcna", "ithgex", "pca", "umap", "tsne", "leiden", "clear_transform_caches",
 ]
 
 
