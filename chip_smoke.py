@@ -82,13 +82,30 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               figure left open; (e) the summary of phase 9a's synthetic
               cells: chr1 loss and chr19 / chr20 gain in the malignant row;
               (f) a JSON line of walls and the GTF's size
+12. multi-device — one card, several cell shards and processes: (a)
+              ``tl.infercnv(device=["cuda:0", "cuda:0"])`` on phase 4's
+              CSR (two ``fused_window`` launches a batch, ``X_cnv`` and
+              ``chr_pos`` bit-identical to phase 4's) and with gene values
+              on phase 8's (two of each kernel a batch, the gene layer
+              bit-identical to phase 8's), beside a one-device run with the
+              same host packer; (b) two gloo ranks on the card, each with
+              half of phase 4's cells, through
+              ``parallel.distributed.infercnv_distributed``, and (c) one
+              NCCL rank (world size 1) on phase 4's first 15,000 cells, all
+              spawned at once as children of this script, each with a
+              timeout: every rank's rows bit-identical to phase 4's; (d) on
+              phase 9a's synthetic cells ``tl.pca`` / ``pp.neighbors`` /
+              ``tl.cnv_score`` / ``tl.ithcna`` on two shards against the
+              card alone (kNN equal, PCA sigma at rtol 1e-6, scores at 1e-9
+              relative); (e) a JSON line of the walls beside one device's
 10. report  — the card line, a JSON line of kernel numbers (each kernel
               with its bytes, its bound on an H100 from those bytes and
               operations, its share of the bound and, where one PyTorch call
               computes the same function, that call's time), then
               ``{"ok": true, "device": {...}}`` as the last line
 
-It imports nothing of JAX and nothing of ``infercnvpy_tpu``.
+It imports nothing of JAX and nothing of ``infercnvpy_tpu``.  Phase 12's
+ranks run this file as ``python3 chip_smoke.py --rank-child ...``.
 """
 
 from __future__ import annotations
@@ -119,6 +136,9 @@ SYNTHETIC_CATS = ["Microglia/Macrophage", "Oligodendrocytes (non-malignant)"]
 GTF_EXTRA_GENES = 40_000  # GENCODE's ~60,000 human genes, with the 20,000 of the AnnData
 GTF_TRANSCRIPTS, GTF_EXONS = 2, 7  # lines per gene: 1 + 2 × (1 + 7) = 17
 GTF_MIN_LINES = 1_000_000
+TWO_SHARDS = ["cuda:0", "cuda:0"]
+RANK_TIMEOUT = 300  # seconds a spawned rank may take before the phase fails
+NCCL_CELLS = 15_000  # the one NCCL rank's cells: phase 4's first batch
 
 
 def log(msg: str) -> None:
@@ -754,13 +774,18 @@ def _separation(emb: np.ndarray, labels: np.ndarray) -> float:
 
 
 def _timed(fn) -> float:
+    return _timed_result(fn)[0]
+
+
+def _timed_result(fn) -> tuple:
+    """``(wall seconds, fn())``, the card synchronised before and after."""
     import torch
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t
+    return time.perf_counter() - t, out
 
 
 def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
@@ -1487,7 +1512,242 @@ def phase_gene_e2e() -> dict:
         _expect_config_mismatch(lambda: tcnv.tl.infercnv(adata, checkpoint_dir=td, inplace=False, lfc_clip=2.5,
                                                          calculate_gene_values=True, **kw))
     log(f"gene checkpoint: resume of 1 of {n_batches} batches launched {resumed}, gene layer and X_cnv bit-identical")
-    return {"launches": launches, "wall": wall}
+    return {"launches": launches, "wall": wall, "expr": expr, "obs": obs, "var": var, "kw": kw,
+            "x_cnv": adata.obsm["X_cnv"], "genes": genes}
+
+
+def _dense_digest(x: np.ndarray) -> str:
+    """sha256 of a dense float32 result with every zero as +0 (what a CSR of it stores)."""
+    import hashlib
+
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    return hashlib.sha256(np.where(x == 0, np.float32(0), x).tobytes()).hexdigest()
+
+
+def rank_child(backend: str, rank: int, world: int, init_file: str, data_dir: str, lo: int, hi: int,
+               out_file: str) -> int:
+    """One rank of phase 12 (b) / (c), run as ``python3 chip_smoke.py --rank-child ...``.
+
+    Reads phase 4's CSR and reference from ``data_dir``, packs its rows
+    ``lo:hi``, runs ``parallel.distributed.infercnv_distributed`` on the card
+    and writes its rows' digest, wall and kernel launches to ``out_file``.
+    """
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+
+    from infercnvpy_tpu_torch.genome import build_window_plan
+    from infercnvpy_tpu_torch.ops.infercnv_kernel import _pack_lut, pack_columns, pack_csr
+    from infercnvpy_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    if backend == "nccl":
+        # one rank: initialize() would do nothing, so the group is made here to run NCCL's all_gather
+        dist.init_process_group("nccl", init_method=f"file://{init_file}", world_size=world, rank=rank)
+    else:
+        distributed.initialize(backend=backend, init_method=f"file://{init_file}", world_size=world, rank=rank)
+    var = make_var(N_GENES)
+    plan = build_window_plan(var, 100, 10)
+    lut = _pack_lut(plan, N_GENES)
+    d = Path(data_dir)
+    indptr = np.load(d / "indptr.npy", mmap_mode="r")
+    a, b = int(indptr[lo]), int(indptr[hi])
+    data, indices = (np.array(np.load(d / f"{name}.npy", mmap_mode="r")[a:b]) for name in ("data", "indices"))
+    local = sp.csr_matrix((data, indices, np.array(indptr[lo : hi + 1]) - a), shape=(hi - lo, N_GENES))
+    packed = pack_csr(local, plan, lut, dtype=np.float32)
+    ref = pack_columns(np.load(d / "reference.npy").astype(np.float32), plan, lut)
+    chunk_ids = np.arange(lo, hi) // E2E_KW["chunksize"]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x_res, _ = distributed.infercnv_distributed(
+        packed, ref, chunk_ids, plan, lfc_clip=E2E_KW["lfc_clip"], dynamic_threshold=E2E_KW["dynamic_threshold"],
+        num_chunks=-(-N_CELLS // E2E_KW["chunksize"]),
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    report = {
+        "backend": dist.get_backend(), "rank": rank, "world_size": dist.get_world_size(), "rows": [lo, hi],
+        "device": str(x_res.device), "digest": _dense_digest(x_res.cpu().numpy()), "infercnv_distributed_sec": wall,
+        "launches": _read_counts(), "total_sec": time.perf_counter() - t0,
+    }
+    dist.destroy_process_group()
+    Path(out_file).write_text(json.dumps(report))
+    return 0
+
+
+def _spawn_ranks(specs: list, data_dir: Path) -> list:
+    """Run each ``(backend, rank, world, init_file, lo, hi)`` as a child of this script, all at once; their reports."""
+    import os
+
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}
+    procs = []
+    for i, (backend, rank, world, init_file, lo, hi) in enumerate(specs):
+        out = data_dir / f"rank_report_{i}.json"
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--rank-child", backend, str(rank), str(world),
+               str(init_file), str(data_dir), str(lo), str(hi), str(out)]
+        procs.append((subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out))
+    reports, failed = [], []
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        for (p, out), spec in zip(procs, specs):
+            try:
+                text = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+            except subprocess.TimeoutExpired:
+                failed.append(f"{spec[0]} rank {spec[1]} timed out after {RANK_TIMEOUT}s")
+                continue
+            if p.returncode != 0 or not out.exists():
+                failed.append(f"{spec[0]} rank {spec[1]} failed (rc={p.returncode}):\n{text[-4000:]}")
+                continue
+            reports.append(json.loads(out.read_text()))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return reports
+
+
+def phase_multi_device(e2e: dict, gene: dict, synthetic) -> dict:
+    """Phase 12: two cell shards on the one card, two gloo ranks, one NCCL rank, and the downstream device lists."""
+    import scipy.sparse as sp
+    import torch
+
+    import infercnvpy_tpu_torch as tcnv
+    from infercnvpy_tpu_torch.ops.knn import exact_knn
+    from infercnvpy_tpu_torch.tl._infercnv import _LAST_RUN_INFO
+
+    walls: dict = {"infercnv_1device_phase4": e2e["wall"], "gene_1device_phase8": gene["wall"]}
+    launches_by_path: dict = {}
+    big = e2e["adata"]
+    n_batches = -(-N_CELLS // BATCH)
+
+    # (a) tl.infercnv on two shards of the card, against phase 4 and phase 8
+    def fresh(expr, obs, var):
+        return tcnv.AnnData(X=expr, obs=obs[["cell_type"]].copy(), var=var[["chromosome", "start", "end"]].copy())
+
+    a = fresh(e2e["expr"], big.obs, big.var)
+    kw = dict(reference_key="cell_type", reference_cat=e2e["cats"])
+    _reset_counts()
+    walls["infercnv_2shards_first"] = _timed(lambda: tcnv.tl.infercnv(a, device=TWO_SHARDS, **kw))
+    launches = _read_counts()
+    launches_by_path["infercnv_102400_2shards"] = launches
+    info = dict(_LAST_RUN_INFO)
+    if info != {"n_devices": 2, "sharded": True, "device_densify": False}:
+        raise AssertionError(f"_LAST_RUN_INFO of the two-shard run: {info}")
+    if launches["fused_window"] != 2 * n_batches:
+        raise AssertionError(f"fused_window ran {launches['fused_window']} times for {n_batches} batches of 2 shards")
+    if not _csr_equal(a.obsm["X_cnv"], big.obsm["X_cnv"]) or a.uns["cnv"]["chr_pos"] != big.uns["cnv"]["chr_pos"]:
+        raise AssertionError("X_cnv or chr_pos of the two-shard run differs from phase 4's")
+    # in turns after the checked run (whose first pinned host buffers are allocated cold): the card alone
+    # with the host packer the shards use, then the shards again
+    one = fresh(e2e["expr"], big.obs, big.var)
+    walls["infercnv_1device_host_pack"] = _timed(
+        lambda: tcnv.tl.infercnv(one, device="cuda:0", device_densify=False, **kw))
+    if not _csr_equal(one.obsm["X_cnv"], big.obsm["X_cnv"]):
+        raise AssertionError("X_cnv of the one-device host-packer run differs from phase 4's")
+    walls["infercnv_2shards"] = _timed(lambda: tcnv.tl.infercnv(a, device=TWO_SHARDS, **kw))
+    if not _csr_equal(a.obsm["X_cnv"], big.obsm["X_cnv"]):
+        raise AssertionError("X_cnv of the second two-shard run differs from phase 4's")
+    log(f"multi-device (a): tl.infercnv(device={TWO_SHARDS}) {walls['infercnv_2shards_first']:.3f}s first, "
+        f"{walls['infercnv_2shards']:.3f}s again (one device: {e2e['wall']:.3f}s in phase 4, "
+        f"{walls['infercnv_1device_host_pack']:.3f}s with the shards' host packer), {info}, launches {launches}; "
+        "X_cnv and chr_pos bit-identical to phase 4's")
+    del a, one
+
+    g = tcnv.AnnData(X=gene["expr"], obs=gene["obs"].copy(), var=gene["var"].copy())
+    _reset_counts()
+    walls["gene_2shards"] = _timed(lambda: tcnv.tl.infercnv(g, calculate_gene_values=True, device=TWO_SHARDS,
+                                                            **gene["kw"]))
+    launches = _read_counts()
+    launches_by_path["gene_values_30000_2shards"] = launches
+    n_gene_batches = -(-GENE_CELLS // BATCH)
+    if launches["fused_window"] != 2 * n_gene_batches or launches["gene_project"] != 2 * n_gene_batches:
+        raise AssertionError(f"{launches} for {n_gene_batches} batches of 2 shards")
+    if not np.array_equal(g.layers["gene_values_cnv"].view(np.uint32), gene["genes"].view(np.uint32)):
+        raise AssertionError("the gene layer of the two-shard run differs from phase 8's")
+    if not _csr_equal(g.obsm["X_cnv"], gene["x_cnv"]):
+        raise AssertionError("X_cnv of the two-shard gene run differs from phase 8's")
+    log(f"multi-device (a): tl.infercnv(calculate_gene_values=True, device={TWO_SHARDS}) {walls['gene_2shards']:.3f}s "
+        f"(phase 8, one device: {gene['wall']:.3f}s), launches {launches}; gene layer and X_cnv bit-identical to "
+        f"phase 8's")
+    del g
+
+    # (b) two gloo ranks on the card, each with half of phase 4's cells; (c) one NCCL rank; all at once
+    x4 = big.obsm["X_cnv"]
+    half = N_CELLS // 2
+    with tempfile.TemporaryDirectory() as td:
+        d = Path(td)
+        for name in ("indptr", "indices", "data"):
+            np.save(d / f"{name}.npy", getattr(e2e["expr"], name))
+        np.save(d / "reference.npy", e2e["reference"])
+        t = time.perf_counter()
+        reports = _spawn_ranks(
+            [("gloo", 0, 2, d / "gloo_init", 0, half), ("gloo", 1, 2, d / "gloo_init", half, N_CELLS),
+             ("nccl", 0, 1, d / "nccl_init", 0, NCCL_CELLS)], d)
+        walls["ranks_spawned_to_done"] = time.perf_counter() - t
+    for r in reports:
+        lo, hi = r["rows"]
+        if r["digest"] != _dense_digest(x4[lo:hi].toarray()):
+            raise AssertionError(f"{r['backend']} rank {r['rank']}: rows {lo}:{hi} differ from phase 4's")
+        if r["launches"]["fused_window"] != 1:
+            raise AssertionError(f"{r['backend']} rank {r['rank']} launched {r['launches']}")
+        key = f"{r['backend']}_rank{r['rank']}_of_{r['world_size']}"
+        walls[f"{key}_infercnv_distributed"] = r["infercnv_distributed_sec"]
+        walls[f"{key}_process"] = r["total_sec"]
+        launches_by_path[f"infercnv_distributed_{key}"] = r["launches"]
+    log("multi-device (b, c): " + "; ".join(
+        f"{r['backend']} rank {r['rank']} of {r['world_size']} on {r['device']}, rows {r['rows'][0]}:{r['rows'][1]}, "
+        f"infercnv_distributed {r['infercnv_distributed_sec']:.3f}s, launches {r['launches']['fused_window']}"
+        for r in reports) + "; every rank's rows bit-identical to phase 4's")
+
+    # (d) the downstream entry points on phase 9a's 20,000 synthetic cells: two shards against the card alone
+    def fresh_syn():
+        s = tcnv.AnnData(X=synthetic.X, obs=synthetic.obs[["cell_type", "cnv_leiden"]].copy(), var=synthetic.var)
+        s.obsm["X_cnv"] = synthetic.obsm["X_cnv"]
+        return s
+
+    s1, s2 = fresh_syn(), fresh_syn()
+    walls["pca_1device"] = _timed(lambda: tcnv.tl.pca(s1, device="cuda:0"))
+    walls["pca_2shards"] = _timed(lambda: tcnv.tl.pca(s2, device=TWO_SHARDS))
+    n = synthetic.n_obs
+    sv1, sv2 = (np.sqrt(s.uns["cnv_pca"]["variance"] * (n - 1)) for s in (s1, s2))
+    np.testing.assert_allclose(sv2, sv1, rtol=1e-6)
+    s2.obsm["X_cnv_pca"] = s1.obsm["X_cnv_pca"]  # the kNN stages compared on the same scores
+    walls["neighbors_1device"] = _timed(lambda: tcnv.pp.neighbors(s1, device="cuda:0"))
+    walls["neighbors_2shards"] = _timed(lambda: tcnv.pp.neighbors(s2, device=TWO_SHARDS))
+    knn1 = exact_knn(s1.obsm["X_cnv_pca"], 15, device="cuda:0")
+    knn2 = exact_knn(s1.obsm["X_cnv_pca"], 15, device=TWO_SHARDS)
+    if not (np.array_equal(knn1[1], knn2[1]) and _bits_equal(knn1[0], knn2[0])):
+        raise AssertionError("kNN on two shards differs from the card alone")
+    d1, d2 = (sp.csr_matrix(s.obsp["cnv_neighbors_distances"]) for s in (s1, s2))
+    if not _csr_equal(d1, d2):
+        raise AssertionError("pp.neighbors' distances on two shards differ from the card alone")
+    scores = {}
+    for name, dev in (("1device", "cuda:0"), ("2shards", TWO_SHARDS)):
+        walls[f"cnv_score_{name}"], scores[f"cnv_{name}"] = _timed_result(
+            lambda: tcnv.tl.cnv_score(s1, groupby="cnv_leiden", inplace=False, device=dev))
+        walls[f"ithcna_{name}"], scores[f"ith_{name}"] = _timed_result(
+            lambda: tcnv.tl.ithcna(s1, "cnv_leiden", inplace=False, device=dev))
+    host = tcnv.tl.cnv_score(s1, groupby="cnv_leiden", inplace=False)
+    rel = {}
+    for what in ("cnv", "ith"):
+        a1, a2 = scores[f"{what}_1device"], scores[f"{what}_2shards"]
+        if set(a1) != set(a2):
+            raise AssertionError(f"{what} scores on two shards cover other groups than on the card alone")
+        rel[what] = max(abs(a2[k] - a1[k]) / abs(a1[k]) for k in a1)
+        if rel[what] > 1e-9:
+            raise AssertionError(f"{what} scores on two shards differ from the card alone by {rel[what]:.3e} relative")
+    rel_host = max(abs(scores["cnv_2shards"][k] - host[k]) / abs(host[k]) for k in host)
+    log(f"multi-device (d) at {n:,} synthetic cells: PCA sigma within {np.max(np.abs(sv2 / sv1 - 1)):.3e} relative, "
+        f"kNN indices and distances and pp.neighbors' graph equal to the card alone; cnv_score / ithcna within "
+        f"{rel['cnv']:.3e} / {rel['ith']:.3e} relative (cnv_score against the host's float32 sums: {rel_host:.3e})")
+    print(json.dumps({"multi_device": {"card_shards": TWO_SHARDS, "walls_sec": walls,
+                                       "note": "two shards share one card: the walls show sharding's overhead, "
+                                               "not a multi-GPU speed-up"}}), flush=True)
+    return {"launches_by_path": launches_by_path, "walls": walls}
 
 
 def main() -> int:
@@ -1503,24 +1763,33 @@ def main() -> int:
     phase_checkpoint(e2e)
     phase_parity(e2e["adata"], e2e["reference"])
     downstream = phase_downstream_quality()
+    synthetic = downstream.pop("adata")
     scale = phase_downstream_scale(e2e["adata"])
-    phase_annotate_and_plot(e2e, downstream.pop("adata"), scale.pop("adata"))
+    phase_annotate_and_plot(e2e, synthetic, scale.pop("adata"))
     e2e_launches = e2e["launches"]
-    del e2e, scale
+    del scale
     gene_kernel = phase_gene_kernels(probe["write_gb_per_s"])
     selects = phase_select_kernels()
     gene_e2e = phase_gene_e2e()
+    multi = phase_multi_device(e2e, gene_e2e, synthetic)
+    del e2e, synthetic
     # each path's kernels take their launches from that path's run
     kernels[0]["launches"] = e2e_launches["fused_window"]
     kernels[0]["launches_by_path"] = {
         "infercnv_102400": e2e_launches["fused_window"], "gene_values_30000": gene_e2e["launches"]["fused_window"],
         "downstream_20000": downstream["launches"]["fused_window"],
+        **{path: n["fused_window"] for path, n in multi["launches_by_path"].items()},
     }
     gene_kernel["launches"] = gene_e2e["launches"]["gene_project"]
+    gene_kernel["launches_by_path"] = {
+        "gene_values_30000": gene_e2e["launches"]["gene_project"],
+        "gene_values_30000_2shards": multi["launches_by_path"]["gene_values_30000_2shards"]["gene_project"],
+    }
     on_path = [kernels[0], gene_kernel]
     off_path = [kernels[1], *selects]
     for k in off_path:
-        k["launches"] = e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]] + downstream["launches"][k["name"]]
+        k["launches"] = (e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]] + downstream["launches"][k["name"]]
+                         + sum(n[k["name"]] for n in multi["launches_by_path"].values()))
     for k in [*on_path, *off_path, probe]:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(smi)
@@ -1535,4 +1804,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:
+        backend, rank, world, init_file, data_dir, lo, hi, out_file = sys.argv[2:10]
+        sys.exit(rank_child(backend, int(rank), int(world), init_file, data_dir, int(lo), int(hi), out_file))
     sys.exit(main())

@@ -1,8 +1,8 @@
 """Small shared utilities (matrix-representation selection, device choice, logging).
 
 Copied from ``infercnvpy_tpu/_util.py``; behavioural contract follows
-reference: src/infercnvpy/_util.py:4-24.  ``pick_device`` and
-``full_f32_matmul`` are the port's own.
+reference: src/infercnvpy/_util.py:4-24.  ``pick_device``,
+``pick_devices``, ``pick_shards`` and ``full_f32_matmul`` are the port's own.
 """
 
 from __future__ import annotations
@@ -14,7 +14,9 @@ import numpy as np
 
 from . import settings
 
-__all__ = ["_ensure_array", "_choose_mtx_rep", "pick_device", "full_f32_matmul", "warn", "info"]
+__all__ = [
+    "_ensure_array", "_choose_mtx_rep", "pick_device", "pick_devices", "pick_shards", "full_f32_matmul", "warn", "info",
+]
 
 
 def _ensure_array(a):
@@ -32,24 +34,62 @@ def _choose_mtx_rep(adata, use_raw: bool = False, layer: str | None = None):
     return adata.raw.X if use_raw else adata.X
 
 
+def _no_cuda(what: str) -> RuntimeError:
+    return RuntimeError(
+        f"{what} runs on a CUDA device by default and torch.cuda.is_available() is False: "
+        'pass device="cpu" to run on the CPU'
+    )
+
+
 def pick_device(device, what: str):
     """One torch device for the entry point ``what``; ``None`` is the CUDA device and raises where there is none."""
     import torch
 
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{what} runs on a CUDA device by default and torch.cuda.is_available() is False: "
-                'pass device="cpu" to run on the CPU'
-            )
+            raise _no_cuda(what)
         return torch.device("cuda")
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
-            raise NotImplementedError(
-                "More than one device is not ported to infercnvpy_tpu_torch yet (ROADMAP.md: multi-device)."
-            )
+            raise ValueError(f"{what} runs on one device, got {len(device)}: {list(device)}")
         device = device[0]
     return torch.device(device)
+
+
+def pick_devices(device, what: str) -> list:
+    """The torch devices of the entry point ``what``, one per cell shard, as a list.
+
+    ``device`` is a name, a ``torch.device``, or a list or tuple of either.
+    A device may appear more than once: each entry is one shard, which is
+    how one card (or the CPU) runs several.  ``None`` is every visible CUDA
+    device and raises where there is none; an empty list, or devices of more
+    than one type, raise ``ValueError``.
+    """
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise _no_cuda(what)
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in (device if isinstance(device, (list, tuple)) else [device])]
+    if not devices:
+        raise ValueError(f"{what}: the device list is empty")
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"{what}: devices of more than one type: {devices}")
+    return devices
+
+
+def pick_shards(device, what: str) -> list:
+    """The devices of a downstream entry point ``what``, as a list.
+
+    ``None`` and a single device are one device, as the JAX package's
+    ``mesh=None`` is (``None``: the CUDA device, raising where there is
+    none); a list or tuple shards the work over its entries
+    (:func:`pick_devices`).
+    """
+    if device is None or not isinstance(device, (list, tuple)):
+        return [pick_device(device, what)]
+    return pick_devices(device, what)
 
 
 @contextlib.contextmanager

@@ -1,7 +1,9 @@
 """Host-side window planning for the smoothing kernel.
 
 Copied from ``infercnvpy_tpu/genome/plan.py`` (plain numpy, no backend);
-:meth:`WindowPlan.from_arrays` is the one addition.
+:meth:`WindowPlan.from_arrays` is the one addition, and ``packed_len`` also
+holds a chromosome's genes past its last window where the JAX package's
+layout runs short of them (there the JAX package raises).
 
 The reference computes the running mean chromosome-by-chromosome with ragged
 Python control flow (reference: tl/_infercnv.py:301-356).  This design
@@ -240,6 +242,12 @@ def build_window_plan(
         needed = max(needed, offsets[c] + s * (w_c - 1) + n)
     # multiple of step (for the phase-major view) and lane-padded
     packed_len = _round_up(_round_up(max(needed, n), s), pad_to * s) if reg else 0
+    # the JAX package sizes the layout from the last window's end only; where
+    # a chromosome's genes past its last window (which lie in no window) run
+    # beyond that, the layout must still hold them
+    genes_end = max((offsets[c] + len(per_chrom_idx[c]) for c in reg), default=0)
+    if genes_end > packed_len:
+        packed_len = _round_up(genes_end, pad_to * s)
 
     packed_src = np.full(packed_len, -1, dtype=np.int32)
     for c in reg:

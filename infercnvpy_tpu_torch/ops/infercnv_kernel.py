@@ -8,7 +8,7 @@ Numerics contract (must match reference tl/_infercnv.py:411-457):
 2. clip to ±lfc_clip (reference :435-436)
 3. pyramidally-weighted running mean along genomic position, per chromosome,
    every ``step``-th window (reference :179-244,301-343) — one strided
-   convolution over the packed gene axis (see genome.plan) plus a segment mean
+   window sum over the packed gene axis (see genome.plan) plus a segment mean
    for small chromosomes
 4. per-cell median centering (reference :441-442)
 5. noise gating at ``dynamic_threshold × std``, where the std is taken over
@@ -22,8 +22,8 @@ the device never gathers the permutation.
 
 The plain pipeline here (:func:`center_smooth_median`, :func:`chunk_gate`)
 serves f32 on the CPU, f64 on any device, and is the oracle for the fused CUDA
-kernel (``ops.fused``), which :func:`build_infercnv_fn` takes for f32 tensors
-on a CUDA device.
+kernel (``ops.fused``), which :func:`build_infercnv_front` takes for f32
+tensors on a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,15 +31,14 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 import torch
-import torch.nn.functional as F
 
 from ..genome.plan import WindowPlan
 from .select import row_median_plain
 
 __all__ = [
-    "apply_gate", "build_infercnv_fn", "center", "center_smooth_median", "chunk_gate", "chunk_threshold",
-    "pack_columns", "pack_columns_plain", "pack_csr", "pack_csr_plain",
-    "packed_width", "small_offsets", "smooth_packed",
+    "apply_gate", "build_infercnv_back", "build_infercnv_fn", "build_infercnv_front", "center",
+    "center_smooth_median", "chunk_gate", "chunk_threshold", "pack_columns", "pack_columns_plain", "pack_csr",
+    "pack_csr_plain", "packed_width", "small_offsets", "smooth_packed",
 ]
 
 
@@ -167,19 +166,19 @@ def center(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return torch.where(x > ref_max, x - ref_max, torch.where(x < ref_min, x - ref_min, zero))
 
 
-def _unphase(phased: torch.Tensor, plan: WindowPlan) -> torch.Tensor:
-    """Phase-major conv region -> gene-major order."""
-    s = plan.step
-    Q = plan.packed_len // s
-    n = phased.shape[0]
-    return phased.reshape(n, s, Q).transpose(1, 2).reshape(n, s * Q)
-
-
 def smooth_packed(xc: torch.Tensor, plan: WindowPlan) -> torch.Tensor:
     """Step 3 on packed input (phase-major conv region + small tail).
 
-    Regular chromosomes: a DIRECT strided window sum (``F.conv1d`` with the
-    normalised pyramid on the gene-major region).  The two-cumsum form is not
+    Regular chromosomes: a DIRECT strided window sum with the normalised
+    pyramid.  Window ``j``'s tap ``t`` (gene-major position ``j·step + t``)
+    lies in phase ``t % step`` at offset ``j + t // step``, so each tap is one
+    contiguous column slice.  The pyramid is symmetric (``w[t] ==
+    w[W-1-t]``), so taps ``t`` and ``W-1-t`` are added first and weighted
+    once: three elementwise ops a pair.  Elementwise ops only (no fused
+    multiply-add, whose vector and scalar paths round differently): every
+    window's value is then the same whatever rows share the call (a batched
+    ``conv1d`` may pick another algorithm for one row than for many), which
+    keeps cell shards bit-identical to one device.  The two-cumsum form is not
     used: in f32 its cancellation error over a 20k-gene row exceeds 1e-6.
     Small chromosomes: the mean of each chromosome's contiguous tail slice.
     Returns the (cells, n_windows) window matrix in final chromosome order.
@@ -187,9 +186,23 @@ def smooth_packed(xc: torch.Tensor, plan: WindowPlan) -> torch.Tensor:
     parts = []
     dev = xc.device
     if plan.n_reg_windows:
-        region = _unphase(xc[:, : plan.packed_len], plan)
-        kernel = torch.as_tensor(plan.pyramid, dtype=xc.dtype, device=dev).view(1, 1, -1)
-        y = F.conv1d(region[:, None, :], kernel, stride=plan.step)[:, 0, :]
+        s = plan.step
+        Q = plan.packed_len // s
+        n_pos = Q - (-(-plan.window_size // s)) + 1  # conv output positions
+        wts = plan.pyramid.astype(np.float64 if xc.dtype == torch.float64 else np.float32).tolist()
+        W = len(wts)
+
+        def tap(t):
+            at = (t % s) * Q + t // s
+            return xc[:, at : at + n_pos]
+
+        y = torch.add(tap(0), tap(W - 1)).mul_(wts[0]) if W > 1 else tap(0) * wts[0]
+        term = torch.empty_like(y)
+        for t in range(1, W // 2):
+            torch.add(tap(t), tap(W - 1 - t), out=term)
+            y.add_(term.mul_(wts[t]))
+        if W % 2 and W > 1:
+            y.add_(torch.mul(tap(W // 2), wts[W // 2], out=term))
         parts.append(y[:, torch.as_tensor(plan.conv_gather, dtype=torch.long, device=dev)])
     if plan.n_small:
         # one contiguous slice per small chromosome: per-slice sums are deterministic
@@ -257,6 +270,75 @@ def chunk_gate(
     return apply_gate(x_res, row_thr)
 
 
+def build_infercnv_front(plan: WindowPlan, *, n_ref_rows: int, lfc_clip: float, dtype: torch.dtype = torch.float32):
+    """The per-row front of the transform: ``front(x_packed, ref_packed) -> (x_res, row_sum, row_sumsq)``.
+
+    Steps 1-4 and each row's sum and sum² of the median-centred windows.
+    f32 goes through ``ops.fused.fused_center_smooth_median``: the CUDA kernel
+    for a CUDA tensor, its plain version for a CPU tensor.  Every other dtype
+    takes the plain pipeline on the tensor's device.  Each row's outputs
+    depend on that row alone, not on the rows that share the call, so a cell
+    shard gives the same bits as the whole batch.
+    """
+    from .fused import fused_center_smooth_median
+
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+    n_ref = int(n_ref_rows)
+
+    def front(x: torch.Tensor, ref: torch.Tensor):
+        x = x.to(dtype)
+        ref = ref.to(dtype)
+        if dtype == torch.float32:
+            if n_ref == 1:
+                ref2 = torch.cat([ref, ref], dim=0)
+            else:
+                ref2 = torch.stack([ref.amin(dim=0), ref.amax(dim=0)])
+            x_res, rs, rsq, _med = fused_center_smooth_median(
+                x.contiguous(), ref2.contiguous(), plan, lfc_clip=lfc_clip, n_ref=min(n_ref, 2)
+            )
+        else:
+            x_res, _med = center_smooth_median(x, ref, plan, lfc_clip)
+            rs = x_res.sum(dim=1)
+            rsq = (x_res * x_res).sum(dim=1)
+        return x_res, rs, rsq
+
+    return front
+
+
+def build_infercnv_back(
+    plan: WindowPlan, *, dynamic_threshold: float | None, num_chunks: int, calculate_gene_values: bool = False
+):
+    """The back of the transform: ``(threshold, finish)``.
+
+    * ``threshold(row_sum, row_sumsq, chunk_ids) -> row_thr`` — step 5's
+      per-row threshold (:func:`chunk_threshold`) over ALL rows of the batch,
+      or ``None`` without a gate;
+    * ``finish(x_res, row_thr) -> (x_res, gene_res)`` — the gene projection
+      (``ops.gene.gene_project``: the CUDA kernel for f32 on a CUDA device)
+      from the ungated windows, then the gate, on any row range with its
+      slice of ``row_thr``.
+    """
+    from .gene import gene_project, gene_projection_data
+
+    gpd = gene_projection_data(plan) if calculate_gene_values else None
+
+    def threshold(rs: torch.Tensor, rsq: torch.Tensor, chunk_ids: torch.Tensor):
+        if dynamic_threshold is None:
+            return None
+        return chunk_threshold(rs, rsq, chunk_ids, num_chunks, plan.n_windows, float(dynamic_threshold))
+
+    def finish(x_res: torch.Tensor, row_thr: torch.Tensor | None):
+        gene_res = None
+        if gpd is not None:
+            gene_res = gene_project(x_res, row_thr, gpd, gate=row_thr is not None)
+        if row_thr is not None:
+            x_res = apply_gate(x_res, row_thr)
+        return x_res, gene_res
+
+    return threshold, finish
+
+
 def build_infercnv_fn(
     plan: WindowPlan,
     *,
@@ -278,9 +360,9 @@ def build_infercnv_fn(
       ``num_chunks`` marks padding rows, which take a threshold from an unused
       segment and must be discarded by the caller.
 
-    f32 goes through ``ops.fused.fused_center_smooth_median``: the CUDA kernel
-    for a CUDA tensor, its plain version for a CPU tensor.  Every other dtype
-    takes the plain pipeline on the tensor's device.
+    The transform is :func:`build_infercnv_front` (the fused kernel for f32
+    on a CUDA device) followed by :func:`build_infercnv_back`;
+    ``parallel.sharded_infercnv_fn`` runs the same two on cell shards.
 
     ``gene_res`` is ``None`` unless ``calculate_gene_values``; then it is the
     (cells, n_covered) per-gene matrix of ``ops.gene.gene_project``, computed
@@ -288,37 +370,13 @@ def build_infercnv_fn(
     per-row threshold, its columns in ``gene_projection_data(plan).covered_sorted``
     order.
     """
-    from .fused import fused_center_smooth_median
-    from .gene import gene_project, gene_projection_data
-
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
-    n_ref = int(n_ref_rows)
-    gpd = gene_projection_data(plan) if calculate_gene_values else None
+    front = build_infercnv_front(plan, n_ref_rows=n_ref_rows, lfc_clip=lfc_clip, dtype=dtype)
+    threshold, finish = build_infercnv_back(
+        plan, dynamic_threshold=dynamic_threshold, num_chunks=num_chunks, calculate_gene_values=calculate_gene_values
+    )
 
     def fn(x: torch.Tensor, ref: torch.Tensor, chunk_ids: torch.Tensor):
-        x = x.to(dtype)
-        ref = ref.to(dtype)
-        if dtype == torch.float32:
-            if n_ref == 1:
-                ref2 = torch.cat([ref, ref], dim=0)
-            else:
-                ref2 = torch.stack([ref.amin(dim=0), ref.amax(dim=0)])
-            x_res, rs, rsq, _med = fused_center_smooth_median(
-                x.contiguous(), ref2.contiguous(), plan, lfc_clip=lfc_clip, n_ref=min(n_ref, 2)
-            )
-        else:
-            x_res, _med = center_smooth_median(x, ref, plan, lfc_clip)
-            rs = x_res.sum(dim=1)
-            rsq = (x_res * x_res).sum(dim=1)
-        row_thr = None
-        if dynamic_threshold is not None:
-            row_thr = chunk_threshold(rs, rsq, chunk_ids, num_chunks, plan.n_windows, float(dynamic_threshold))
-        gene_res = None
-        if gpd is not None:
-            gene_res = gene_project(x_res, row_thr, gpd, gate=row_thr is not None)
-        if row_thr is not None:
-            x_res = apply_gate(x_res, row_thr)
-        return x_res, gene_res
+        x_res, rs, rsq = front(x, ref)
+        return finish(x_res, threshold(rs, rsq, chunk_ids))
 
     return fn

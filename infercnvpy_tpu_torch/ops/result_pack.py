@@ -1,6 +1,6 @@
 """Compression of the gated result matrix for the device-to-host copy.
 
-Counterpart of ``infercnvpy_tpu/ops/result_pack.py`` (single device).  After
+Counterpart of ``infercnvpy_tpu/ops/result_pack.py``.  After
 the noise gate the cell×window matrix is mostly exact zeros, so it is fetched
 as
 
@@ -10,7 +10,11 @@ as
   array,
 
 and scipy CSR is rebuilt on the host straight from the mask (bit positions
-are the column indices), bit-identical to CSR-ifying the dense matrix.
+are the column indices), bit-identical to CSR-ifying the dense matrix.  On
+cell shards (``parallel``) each shard masks and compacts its own rows into
+its own ``cap`` slots (:func:`sharded_mask_nnz`, :func:`sharded_compact`),
+and the host joins the segments in shard order
+(:func:`sharded_mask_vals_to_csr`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-__all__ = ["mask_nnz", "compact", "mask_vals_to_csr", "round_result_cap"]
+__all__ = [
+    "mask_nnz", "compact", "mask_vals_to_csr", "round_result_cap",
+    "sharded_mask_nnz", "sharded_compact", "sharded_mask_vals_to_csr",
+]
 
 
 def round_result_cap(nnz: int) -> int:
@@ -30,6 +37,18 @@ def round_result_cap(nnz: int) -> int:
     batches.
     """
     return max(1024, 1 << max(0, (int(nnz) - 1).bit_length()))
+
+
+def _mask(x: torch.Tensor, n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mask, nnz)`` of the first ``n_valid`` rows, ``nnz`` still on the device."""
+    nz = x[:n_valid] != 0
+    rows, w = nz.shape
+    wpad = -(-w // 32) * 32
+    if wpad != w:
+        nz = torch.nn.functional.pad(nz, (0, wpad - w))
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    bits = nz.reshape(rows, wpad // 8, 8).to(torch.uint8) << shifts
+    return bits.sum(dim=-1, dtype=torch.uint8), nz.sum()
 
 
 def mask_nnz(x: torch.Tensor, n_valid: int) -> tuple[torch.Tensor, int]:
@@ -43,15 +62,39 @@ def mask_nnz(x: torch.Tensor, n_valid: int) -> tuple[torch.Tensor, int]:
     is the (n_valid, ceil(w/32)) word mask :func:`mask_vals_to_csr` reads
     (the JAX package's ``mask_nnz_fn`` layout).
     """
-    nz = x[:n_valid] != 0
-    rows, w = nz.shape
-    wpad = -(-w // 32) * 32
-    if wpad != w:
-        nz = torch.nn.functional.pad(nz, (0, wpad - w))
-    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
-    bits = nz.reshape(rows, wpad // 8, 8).to(torch.uint8) << shifts
-    mask = bits.sum(dim=-1, dtype=torch.uint8)
-    return mask, int(nz.sum())
+    mask, nnz = _mask(x, n_valid)
+    return mask, int(nnz)
+
+
+def _shard_local_valid(n_valid: int, start: int, rows: int) -> int:
+    """The global valid-row count in the frame of the shard of ``rows`` rows from global row ``start``.
+
+    Padding rows sit at the global tail, so a shard's valid rows are its first
+    ``n_valid - start`` (clamped to ``[0, rows]``).  The mask and compact
+    passes share it: they must agree, or the rebuilt CSR desynchronises
+    (``infercnvpy_tpu/ops/result_pack.py:99-110``).
+    """
+    return min(max(n_valid - start, 0), rows)
+
+
+def _shard_starts(xs) -> list[int]:
+    return np.cumsum([0] + [x.shape[0] for x in xs[:-1]]).tolist()
+
+
+def sharded_mask_nnz(xs: list[torch.Tensor], n_valid: int) -> tuple[list[torch.Tensor], list[int]]:
+    """:func:`mask_nnz` of each shard's valid rows: ``(masks, shard_nnz)``, the masks on their devices.
+
+    ``xs`` are the shards' row blocks in global row order and ``n_valid`` the
+    global count of valid rows.  Every shard's mask is started before any
+    count is read, so the devices overlap.
+    """
+    parts = [_mask(x, _shard_local_valid(n_valid, s, x.shape[0])) for x, s in zip(xs, _shard_starts(xs))]
+    return [m for m, _ in parts], [int(k) for _, k in parts]
+
+
+def sharded_compact(xs: list[torch.Tensor], n_valid: int, cap: int) -> list[torch.Tensor]:
+    """:func:`compact` of each shard's valid rows into its own ``cap`` slots, on its device."""
+    return [compact(x, _shard_local_valid(n_valid, s, x.shape[0]), cap) for x, s in zip(xs, _shard_starts(xs))]
 
 
 def compact(x: torch.Tensor, n_valid: int, cap: int) -> torch.Tensor:
@@ -66,6 +109,21 @@ def compact(x: torch.Tensor, n_valid: int, cap: int) -> torch.Tensor:
     out = torch.zeros(cap, dtype=x.dtype, device=x.device)
     out[: vals.numel()] = vals
     return out
+
+
+def sharded_mask_vals_to_csr(
+    mask: np.ndarray, vals: np.ndarray, shard_nnz, n_windows: int
+) -> sp.csr_matrix:
+    """Host assembly of the sharded pack (``infercnvpy_tpu/ops/result_pack.py:159-168``).
+
+    ``mask`` holds the shards' word masks in global row order, ``vals`` the
+    shards' ``cap``-slot value segments one after another, and ``shard_nnz``
+    each segment's count of real values.
+    """
+    n_dev = len(shard_nnz)
+    cap = len(vals) // n_dev
+    data = np.concatenate([vals[s * cap : s * cap + int(shard_nnz[s])] for s in range(n_dev)])
+    return mask_vals_to_csr(mask, data, n_windows)
 
 
 def mask_vals_to_csr(mask: np.ndarray, vals: np.ndarray, n_windows: int) -> sp.csr_matrix:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import scipy.sparse as sp
 
 from .. import tl
-from .._util import pick_device, warn
+from .._util import pick_shards, warn
 
 __all__ = ["neighbors"]
 
@@ -32,23 +32,24 @@ def neighbors(
     reference (pp/__init__.py:39-41).  Stores ``obsp["{key_added}_distances"]``
     (exact kNN distances) and ``obsp["{key_added}_connectivities"]`` (fuzzy
     union weights), plus a scanpy-compatible ``uns[key_added]`` block.
-    ``device=None`` is the CUDA device.
+    ``device=None`` is the CUDA device; a list of devices splits the kNN
+    query blocks over them (the connectivities run on the first).
     """
     from ..ops.graph import fuzzy_connectivities, knn_distance_matrix
     from ..ops.knn import exact_knn
 
-    dev = pick_device(device, "pp.neighbors")
+    devices = pick_shards(device, "pp.neighbors")
     if f"X_{use_rep}" not in adata.obsm and use_rep == "cnv_pca":
         warn("X_cnv_pca not found in adata.obsm. Computing PCA with default parameters")
-        tl.pca(adata, device=dev)
+        tl.pca(adata, device=devices)
 
     X = adata.obsm[f"X_{use_rep}"]
     if sp.issparse(X):
         X = X.toarray()
     k = int(min(n_neighbors, X.shape[0]))
-    dists, idxs = exact_knn(X, k, device=dev, **kwargs)
+    dists, idxs = exact_knn(X, k, device=devices, **kwargs)
     distances = knn_distance_matrix(dists, idxs)
-    connectivities = fuzzy_connectivities(dists, idxs, device=dev)
+    connectivities = fuzzy_connectivities(dists, idxs, device=devices[0])
 
     if not inplace:
         return distances, connectivities

@@ -3,9 +3,11 @@
 API surface mirrors the reference's ``tl`` namespace (reference:
 tl/__init__.py) without its scanpy / leidenalg / umap-learn / sklearn
 dependencies.  Entry points with a ``device`` argument run on the CUDA device
-when it is ``None`` and raise where there is none; ``leiden``,
-``cnv_score`` and the ``copykat`` bridge to R run on the host, as in the JAX
-package.
+when it is ``None`` and raise where there is none; ``infercnv`` takes every
+visible GPU then.  ``infercnv``, ``pca``, ``cnv_score``, ``ithcna`` and
+``ithgex`` also take a list of devices and split the cells over them (the
+JAX package's ``mesh``).  ``leiden``, ``cnv_score`` without a ``device`` and
+the ``copykat`` bridge to R run on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 
-from .._util import pick_device, warn
+from .._util import pick_device, pick_shards, warn
 from ._copykat import copykat
 from ._infercnv import clear_transform_caches, infercnv
 from ._scores import cnv_score, ithcna, ithgex
@@ -66,17 +68,18 @@ def pca(
 
     ``svd_solver`` is accepted for API compatibility; the port always uses
     the blocked-Gram eigendecomposition (:func:`infercnvpy_tpu_torch.ops.linalg.truncated_svd`).
-    ``device=None`` is the CUDA device.
+    ``device=None`` is the CUDA device; a list of devices splits the cells
+    over them.
     """
     from ..ops.linalg import truncated_svd
 
-    dev = pick_device(device, "tl.pca")
+    devices = pick_shards(device, "tl.pca")
     if f"X_{use_rep}" not in adata.obsm:
         raise KeyError(f"X_{use_rep} is not in adata.obsm. Did you run `tl.infercnv`?")
     X = adata.obsm[f"X_{use_rep}"]
     if n_comps is None:
         n_comps = min(50, min(X.shape) - 1)
-    scores, components, svals = truncated_svd(X, n_comps, zero_center=zero_center, device=dev, **kwargs)
+    scores, components, svals = truncated_svd(X, n_comps, zero_center=zero_center, device=devices, **kwargs)
     if inplace:
         adata.obsm[f"X_{key_added}"] = scores
         adata.uns[key_added] = {"variance": (svals**2) / max(1, X.shape[0] - 1)}

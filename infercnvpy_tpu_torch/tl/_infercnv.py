@@ -1,10 +1,14 @@
 """`tl.infercnv` — the CNV-inference entry point (counterpart of ``infercnvpy_tpu/tl/_infercnv.py``).
 
 API and numerics contract follow the reference entry point
-(reference: tl/_infercnv.py:18-161) on one device:
+(reference: tl/_infercnv.py:18-161):
 
-* one transform (``ops.infercnv_kernel.build_infercnv_fn``) processes a whole
-  device batch of cells — on a CUDA device in f32 through the fused kernel;
+* one transform (``parallel.sharded_infercnv_fn``) processes a whole device
+  batch of cells — on a CUDA device in f32 through the fused kernel; each
+  batch is split into contiguous cell shards, one per device of the list
+  (every visible GPU by default; a single device is one shard), each shard
+  runs the front, and one chunk gate is taken over all of them, so any
+  device count gives the bits of one device;
 * the reference's chunk-scoped noise std (:448-453) is reproduced exactly via
   a segmented reduction keyed on ``floor(cell_index / chunksize)``, and
   batches are whole multiples of ``chunksize``, so results do not depend on
@@ -40,12 +44,18 @@ import pandas as pd
 import scipy.sparse as sp
 import torch
 
-from .._util import _ensure_array, info, pick_device, warn
+from .._util import _ensure_array, info, pick_devices, warn
 from ..genome.plan import build_window_plan
 from ..ops.gene import gene_projection_data
-from ..ops.infercnv_kernel import _pack_lut, build_infercnv_fn, pack_columns, pack_csr, packed_width
+from ..ops.infercnv_kernel import _pack_lut, pack_columns, pack_csr, packed_width
+from ..parallel.mesh import replicate, shard_rows
+from ..parallel.sharded import sharded_infercnv_fn
 
 __all__ = ["infercnv", "clear_transform_caches"]
+
+#: execution details of the most recent `_infercnv_compute` call (test hook), the JAX
+#: package's keys: {"n_devices": int, "sharded": bool, "device_densify": bool}
+_LAST_RUN_INFO: dict = {}
 
 
 def infercnv(
@@ -88,16 +98,23 @@ def infercnv(
         Compute dtype.  ``None`` uses float64 when the input is float64 or
         integer (the reference's numpy promotion), else float32.
     device
-        One torch device (or its name).  ``None`` means the CUDA device and
-        raises when ``torch.cuda.is_available()`` is false: pass
-        ``device="cpu"`` to run on the CPU.  On CUDA, float32 runs through
-        the fused kernel; other dtypes and the CPU run the plain PyTorch
+        A torch device (or its name), or a list or tuple of them.  ``None``
+        means every visible CUDA device, as the JAX package takes every
+        device, and raises when ``torch.cuda.is_available()`` is false: pass
+        ``device="cpu"`` to run on the CPU.  With more than one device each
+        batch is split into contiguous cell shards, one per list entry (an
+        entry may repeat: ``["cuda:0", "cuda:0"]`` runs two shards on one
+        card); each shard runs the front on its device, and the chunk noise
+        statistics are taken over all shards' rows, so the result is
+        bit-identical to one device's.  On CUDA, float32 runs through the
+        fused kernel; other dtypes and the CPU run the plain PyTorch
         pipeline.
     device_densify
-        For sparse input, ship the CSR arrays and densify on the device
-        instead of packing a dense block on the host.  ``None`` (default)
-        enables it for sparse input; ``False`` forces the host packer.  Does
-        not affect numerics.
+        For sparse input on one device, ship the CSR arrays and densify on
+        the device instead of packing a dense block on the host.  ``None``
+        (default) enables it for sparse input on one device; ``False``
+        forces the host packer.  On several devices the host packer runs,
+        with a warning if ``True`` was asked for.  Does not affect numerics.
     checkpoint_dir
         Stream each finished cell batch to this directory
         (``batch_<start>.npz``, written atomically) and resume an interrupted
@@ -128,8 +145,7 @@ def infercnv(
     position, on excluded chromosomes, or covered by no window.
 
     With ``INFERCNVPY_TPU_TRACE_DIR`` set, each call is traced
-    (``profiling.maybe_trace``).  More than one device is not ported yet and
-    raises ``NotImplementedError``.
+    (``profiling.maybe_trace``).
     """
     del n_jobs
     # validation: messages are observable API surface (reference tl/_infercnv.py:95-105)
@@ -141,7 +157,7 @@ def infercnv(
         raise ValueError(
             "Genomic positions not found. There need to be `chromosome`, `start`, and `end` columns in `adata.var`. "
         )
-    dev = pick_device(device, "tl.infercnv")
+    devices = pick_devices(device, "tl.infercnv")
 
     # gene selection: drop unannotated genes (warn) and excluded chromosomes
     chrom = adata.var["chromosome"]
@@ -175,7 +191,7 @@ def infercnv(
             chunksize=chunksize,
             batch_cells=batch_cells,
             dtype=dtype,
-            device=dev,
+            device=devices,
             device_densify=device_densify,
             progress=progress,
             compress_results=compress_results,
@@ -199,18 +215,21 @@ def clear_transform_caches() -> None:
     """Drop every memoized per-plan structure (counterpart of the JAX package's, ``tl/_infercnv.py:226-253``).
 
     The port caches across calls, all keyed by ``plan.cache_key``: the
-    gene-coverage groups of each window plan (``ops.gene._gpd_cache``) and the
+    gene-coverage groups of each window plan (``ops.gene._gpd_cache``), the
     kernels' per-plan index tables on each device
-    (``ops.fused._device_tables``, ``ops.gene._device_tables``).  The next call
+    (``ops.fused._device_tables``, ``ops.gene._device_tables``) and the
+    sharded transforms (``parallel.sharded._BUILD_CACHE``).  The next call
     rebuilds what it needs; use from long-lived services between unrelated
     workloads.
     """
     from ..ops import fused as _fused
     from ..ops import gene as _gene
+    from ..parallel import sharded as _sharded
 
     _gene._gpd_cache.clear()
     _gene._device_tables.clear()
     _fused._device_tables.clear()
+    _sharded._BUILD_CACHE.clear()
 
 
 def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, stats: dict | None = None) -> np.ndarray:
@@ -381,50 +400,60 @@ def _np_view(t: torch.Tensor) -> np.ndarray:
 
 
 class _Uploads:
-    """Two slots of host buffers for the batches' transfer arrays, and their copies to the device.
+    """Two slots of host buffers for the batches' transfer arrays, and their copies to the devices.
 
     The buffers are allocated once per run, pinned on CUDA.  Before a slot is
-    packed again, :meth:`host` waits for the slot's previous copy; the copy
-    runs on a copy stream of its own, and :meth:`ready` makes the consuming
-    stream wait for it and tells the caching allocator that the tensors are
-    used there (``record_stream``), so their memory is not reused while the
-    compute still reads them.  On the CPU the "copy" hands over the slot's
-    tensors themselves.
+    packed again, :meth:`host` waits for the slot's previous copies; the
+    copies run on a copy stream of each device's own, and :meth:`ready` makes
+    the consuming stream wait for them and tells the caching allocator that
+    the tensors are used there (``record_stream``), so their memory is not
+    reused while the compute still reads them.  With several cell shards
+    each shard's device receives its contiguous rows (``shards``, in device
+    order) of every buffer; with one, the whole buffers.  On the CPU the
+    "copy" hands over the slot's tensors (or their row slices) themselves.
     """
 
-    def __init__(self, device: torch.device, specs: dict):
-        self.device = device
-        self.cuda = device.type == "cuda"
+    def __init__(self, devices: list, shards: list, specs: dict):
+        self.devices = devices
+        self.shards = shards
+        self.cuda = devices[0].type == "cuda"
         self.tensors = [
             {k: torch.empty(shape, dtype=dt, pin_memory=self.cuda) for k, (shape, dt) in specs.items()}
             for _ in range(2)
         ]
         self.arrays = [{k: _np_view(t) for k, t in slot.items()} for slot in self.tensors]
         self.nbytes = sum(t.numel() * t.element_size() for t in self.tensors[0].values())
-        self._copied = [None, None]
-        self._stream = torch.cuda.Stream(device) if self.cuda else None
+        self._copied = [[], []]
+        self._streams = {str(d): torch.cuda.Stream(d) for d in devices} if self.cuda else {}
 
     def host(self, slot: int) -> dict:
-        """numpy views of the slot's buffers, once the slot's previous copy has finished."""
-        if self._copied[slot] is not None:
-            self._copied[slot].synchronize()
+        """numpy views of the slot's buffers, once the slot's previous copies have finished."""
+        for event in self._copied[slot]:
+            event.synchronize()
         return self.arrays[slot]
 
-    def to_device(self, slot: int):
-        """Start the slot's copy to the device; returns ``(tensors, event)``."""
-        if not self.cuda:
-            return dict(self.tensors[slot]), None
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            dev = {k: t.to(self.device, non_blocking=True) for k, t in self.tensors[slot].items()}
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        self._copied[slot] = event
-        return dev, event
+    def to_device(self, slot: int) -> list:
+        """Start the slot's copies to the devices; returns ``(tensors, event)`` for each shard."""
+        whole = len(self.shards) == 1
+        out = []
+        for device, (lo, hi) in zip(self.devices, self.shards):
+            part = {k: t if whole else t[lo:hi] for k, t in self.tensors[slot].items()}
+            if not self.cuda:
+                out.append((part, None))
+                continue
+            stream = self._streams[str(device)]
+            with torch.cuda.device(device), torch.cuda.stream(stream):
+                dev = {k: t.to(device, non_blocking=True) for k, t in part.items()}
+                event = torch.cuda.Event()
+                event.record(stream)
+            out.append((dev, event))
+        self._copied[slot] = [event for _, event in out if event is not None]
+        return out
 
     def ready(self, dev: dict, event) -> dict:
-        """The copied tensors, usable on the calling thread's current stream."""
+        """The copied tensors, usable on their device's current stream."""
         if event is not None:
-            stream = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.current_stream(next(iter(dev.values())).device)
             stream.wait_event(event)
             for t in dev.values():
                 t.record_stream(stream)
@@ -442,9 +471,9 @@ class _Downloads:
     own host buffers.
     """
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.cuda = device.type == "cuda"
+    def __init__(self, devices: list):
+        self.cuda = devices[0].type == "cuda"
+        self.devices = list({str(d): d for d in devices}.values())
         self._buffers: list[dict] = [{}, {}]
 
     def fetch(self, slot: int, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -459,13 +488,21 @@ class _Downloads:
         host.copy_(t, non_blocking=True)
         return host
 
-    def record(self):
-        """An event after the copies started so far (None on the CPU)."""
+    def record(self) -> list:
+        """An event on each device after the copies started so far (none on the CPU)."""
         if not self.cuda:
-            return None
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return event
+            return []
+        events = []
+        for device in self.devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            events.append(event)
+        return events
+
+
+def _host_rows(parts: list[torch.Tensor]) -> np.ndarray:
+    """The shards' host row blocks as one array (the one block itself for one shard)."""
+    return parts[0].numpy() if len(parts) == 1 else np.concatenate([p.numpy() for p in parts])
 
 
 _TORCH_INT = {np.dtype(np.uint16): torch.uint16, np.dtype(np.int32): torch.int32}
@@ -483,7 +520,7 @@ def _infercnv_compute(
     chunksize: int,
     batch_cells: int | None,
     dtype,
-    device: torch.device,
+    device,
     device_densify: bool | None = None,
     stats: dict | None = None,
     progress=False,
@@ -495,6 +532,7 @@ def _infercnv_compute(
     """Run the full pipeline; returns ``(chr_pos, csr result, per-gene matrix or None)``.
 
     The per-gene matrix is (cells, masked genes), NaN for uncovered genes.
+    ``device`` is one torch device or a list of them, one per cell shard.
 
     ``stats`` (optional) — a dict that receives a per-stage breakdown:
     ``host_pack_sec``, ``h2d_sec``, ``h2d_bytes``, ``compute_sec``,
@@ -530,14 +568,23 @@ def _infercnv_compute(
     else:
         batch_cells = max(chunksize, (batch_cells // chunksize) * chunksize)
     batch_cells = min(batch_cells, ((n_cells + chunksize - 1) // chunksize) * chunksize)
-    # every batch ships this many rows; the last one's padding rows take the
-    # sentinel chunk id num_chunks
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    n_dev = len(devices)
+    sharded = n_dev > 1
+    # every batch ships this many rows, a multiple of the device count; the
+    # padding rows take the sentinel chunk id num_chunks
     rows_padded = batch_cells if n_cells > batch_cells else n_cells
+    rows_padded += (-rows_padded) % n_dev
+    shards = shard_rows(rows_padded, n_dev)
 
-    use_sparse = device_densify is not False and sp.issparse(expr)
+    use_sparse = device_densify is not False and sp.issparse(expr) and not sharded
+    if device_densify and sharded:
+        warn("device_densify is not supported on several devices; using the host packer")
     use_result_pack = compress_results is True or (compress_results is None and dynamic_threshold is not None)
     timing = stats is not None
-    on_cuda = device.type == "cuda"
+    on_cuda = devices[0].type == "cuda"
+    _LAST_RUN_INFO.clear()
+    _LAST_RUN_INFO.update({"n_devices": n_dev, "sharded": sharded, "device_densify": use_sparse})
 
     ckpt = None
     if checkpoint_dir is not None:
@@ -554,7 +601,8 @@ def _infercnv_compute(
 
     def _sync():
         if timing and on_cuda:
-            torch.cuda.synchronize(device)
+            for d in devices:
+                torch.cuda.synchronize(d)
 
     def _tick():
         _sync()
@@ -620,21 +668,22 @@ def _infercnv_compute(
 
     if compute_starts:
         from .. import native
-        from ..ops.result_pack import compact, mask_nnz, mask_vals_to_csr, round_result_cap
+        from ..ops.result_pack import (
+            _shard_local_valid, mask_vals_to_csr, round_result_cap, sharded_compact, sharded_mask_nnz,
+            sharded_mask_vals_to_csr,
+        )
         from ..ops.sparse_ingest import coo_from_csr_batch, col_index_dtype, densify, round_nnz_cap
 
         # the transform is built only here: a run whose every batch resumes
-        # from the checkpoint builds and launches nothing
-        fn = build_infercnv_fn(
-            plan,
-            n_ref_rows=reference.shape[0],
-            lfc_clip=lfc_clip,
-            dynamic_threshold=dynamic_threshold,
-            num_chunks=num_chunks,
-            calculate_gene_values=calculate_gene_values,
-            dtype=cdtype,
+        # from the checkpoint builds and launches nothing.  It maps the
+        # shards' operands to the shards' results, as lists
+        fn_kw = dict(
+            n_ref_rows=reference.shape[0], lfc_clip=lfc_clip, dynamic_threshold=dynamic_threshold,
+            num_chunks=num_chunks, calculate_gene_values=calculate_gene_values, dtype=cdtype,
         )
-        ref_dev = torch.from_numpy(pack_columns(np.asarray(reference, dtype=np_cdtype), plan, lut)).to(device)
+        fn = sharded_infercnv_fn(plan, devices, **fn_kw)
+
+        refs = replicate(torch.from_numpy(pack_columns(np.asarray(reference, dtype=np_cdtype), plan, lut)), devices)
 
         specs = {"chunk": ((rows_padded,), torch.int64)}
         if use_sparse:
@@ -653,8 +702,8 @@ def _infercnv_compute(
             specs["x"] = ((rows_padded, width), stage_dtype)
             convert = stage_dtype != cdtype
             scratch = np.empty((rows_padded, width), np_cdtype) if convert else None
-        uploads = _Uploads(device, specs)
-        downloads = _Downloads(device)
+        uploads = _Uploads(devices, shards, specs)
+        downloads = _Downloads(devices)
         chunk_base = np.arange(rows_padded, dtype=np.int64)
 
         def _prepare(start):
@@ -693,67 +742,70 @@ def _infercnv_compute(
             _tock("host_pack_sec", t0)
 
             t0 = _tick()
-            dev, event = uploads.to_device(slot)
+            devs = uploads.to_device(slot)
             if timing:
                 stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + uploads.nbytes
             _tock("h2d_sec", t0)
-            return dev, event, rows, nnz
+            return devs, rows, nnz
 
         # one capacity per matrix: the gene matrix's nnz must not size the window fetch
         pack_caps = {"x": 0, "gene": 0}
 
-        def _try_pack(arr: torch.Tensor, cap_key: str, rows: int):
-            """``("packed", mask, vals, nnz)`` on the device, or None when the
-            dense fetch would ship no more bytes."""
-            # the int(nnz) in mask_nnz waits for this batch's compute; the
+        def _try_pack(arrs: list, cap_key: str, rows: int):
+            """``("packed", masks, vals, shard_nnz)`` on the devices, or None when
+            the dense fetch would ship no more bytes."""
+            # the counts in sharded_mask_nnz wait for this batch's compute; the
             # worker thread packs the next batch meanwhile
-            mask, nnz = mask_nnz(arr, rows)
-            pack_caps[cap_key] = max(pack_caps[cap_key], round_result_cap(nnz))
+            masks, nnz = sharded_mask_nnz(arrs, rows)
+            pack_caps[cap_key] = max(pack_caps[cap_key], round_result_cap(max(nnz)))
             cap = pack_caps[cap_key]
-            if mask.numel() * mask.element_size() + cap * arr.element_size() >= arr.numel() * arr.element_size():
+            item = arrs[0].element_size()
+            packed_bytes = sum(m.numel() * m.element_size() for m in masks) + len(arrs) * cap * item
+            if packed_bytes >= sum(a.numel() for a in arrs) * item:
                 return None
-            return ("packed", mask, compact(arr, rows, cap), nnz)
+            return ("packed", masks, sharded_compact(arrs, rows, cap), nnz)
 
-        def _payload(arr: torch.Tensor, cap_key: str, rows: int):
-            return (_try_pack(arr, cap_key, rows) if use_result_pack else None) or ("dense", arr[:rows])
+        def _payload(arrs: list, cap_key: str, rows: int):
+            packed = _try_pack(arrs, cap_key, rows) if use_result_pack else None
+            return packed or ("dense", [a[: _shard_local_valid(rows, lo, hi - lo)] for a, (lo, hi) in zip(arrs, shards)])
 
-        def _compute(dev: dict, rows: int, nnz):
+        def _compute(parts: list, rows: int, nnz):
             t0 = _tick()
             if use_sparse:
-                x_dev = densify(dev["cols"], dev["vals"], dev["counts"], nnz, width, cdtype)
+                xs = [densify(p["cols"], p["vals"], p["counts"], nnz, width, cdtype) for p in parts]
             else:
-                x_dev = dev["x"]
-            x_res, gene_res = fn(x_dev, ref_dev, dev["chunk"])
-            x_payload = _payload(x_res, "x", rows)
-            g_payload = _payload(gene_res, "gene", rows) if gpd is not None else None
+                xs = [p["x"] for p in parts]
+            x_parts, g_parts = fn(xs, refs, [p["chunk"] for p in parts])
+            x_payload = _payload(x_parts, "x", rows)
+            g_payload = _payload(g_parts, "gene", rows) if gpd is not None else None
             _tock("compute_sec", t0)
             return x_payload, g_payload
 
         def _fetch(payload, slot: int, name: str, bytes_key: str):
             """Start the device→host copies of one payload; returns it with host tensors."""
-            if payload[0] == "packed":
-                _, mask, vals, nnz = payload
-                host = ("packed", downloads.fetch(slot, f"{name}_mask", mask),
-                        downloads.fetch(slot, f"{name}_vals", vals), nnz)
-                n_bytes = mask.numel() * mask.element_size() + vals.numel() * vals.element_size()
-            else:
-                host = ("dense", downloads.fetch(slot, f"{name}_dense", payload[1]))
-                n_bytes = payload[1].numel() * payload[1].element_size()
+            packed = payload[0] == "packed"
+            arrays = {"mask": payload[1], "vals": payload[2]} if packed else {"dense": payload[1]}
+            host = {k: [downloads.fetch(slot, f"{name}_{k}{i}", t) for i, t in enumerate(ts)]
+                    for k, ts in arrays.items()}
             if timing:
+                n_bytes = sum(t.numel() * t.element_size() for ts in arrays.values() for t in ts)
                 stats[bytes_key] = stats.get(bytes_key, 0) + n_bytes
-            return host
+            return ("packed", host["mask"], host["vals"], payload[3]) if packed else ("dense", host["dense"])
 
         def _unpack_csr(host, n_cols: int) -> sp.csr_matrix:
             if host[0] == "packed":
-                _, mask, vals, nnz = host
-                return mask_vals_to_csr(mask.numpy().view(np.uint32), vals.numpy()[:nnz], n_cols)
-            dense = host[1].numpy()
+                _, masks, vals, nnz = host
+                mask = _host_rows(masks).view(np.uint32)
+                if len(vals) == 1:
+                    return mask_vals_to_csr(mask, vals[0].numpy()[: nnz[0]], n_cols)
+                return sharded_mask_vals_to_csr(mask, _host_rows(vals), nnz, n_cols)
+            dense = _host_rows(host[1])
             return sp.csr_matrix(native.dense_to_csr(dense), shape=dense.shape)
 
         def _materialize(pending):
             """Host half of one finished batch: wait for its copies, assemble, checkpoint."""
-            x_host, g_host, event, start = pending
-            if event is not None:
+            x_host, g_host, events, start = pending
+            for event in events:
                 event.synchronize()
             t0 = _tick()
             mat = _unpack_csr(x_host, plan.n_windows)
@@ -764,7 +816,10 @@ def _infercnv_compute(
                 t0 = _tick()
                 # per-gene values are consumed (and checkpointed) dense, copied
                 # out of the reused host buffer
-                g_np = np.array(g_host[1].numpy()) if g_host[0] == "dense" else _unpack_csr(g_host, gpd.total).toarray()
+                if g_host[0] == "dense":
+                    g_np = np.concatenate([p.numpy() for p in g_host[1]])
+                else:
+                    g_np = _unpack_csr(g_host, gpd.total).toarray()
                 gene_parts.append(g_np)
                 _tock("gene_unpack_sec", t0)
             if ckpt is not None:
@@ -792,15 +847,15 @@ def _infercnv_compute(
                 _progress(done_cells)
                 continue
             if use_prefetch:
-                dev, event, rows, nnz = futures.pop(start).result()
+                devs, rows, nnz = futures.pop(start).result()
                 if next_prefetch < len(compute_starts):
                     nxt = compute_starts[next_prefetch]
                     futures[nxt] = pool.submit(_prepare, nxt)
                     next_prefetch += 1
             else:
-                dev, event, rows, nnz = _prepare(start)
-            x_payload, g_payload = _compute(uploads.ready(dev, event), rows, nnz)
-            del dev
+                devs, rows, nnz = _prepare(start)
+            x_payload, g_payload = _compute([uploads.ready(dev, event) for dev, event in devs], rows, nnz)
+            del devs
             t0 = _tick()
             slot = slot_of[start]
             x_host = _fetch(x_payload, slot, "x", "d2h_bytes")

@@ -53,7 +53,7 @@ def adata():
 
 
 class _CountingBuild:
-    """Wraps ``build_infercnv_fn`` so a test can count the batches computed."""
+    """Wraps ``sharded_infercnv_fn`` so a test can count the batches computed."""
 
     def __init__(self, real):
         self.real = real
@@ -87,7 +87,7 @@ def test_resume_loads_without_compute(tmp_path, monkeypatch, fmt):
         raise AssertionError("compute path entered despite complete checkpoint")
 
     # with every batch on disk a resumed run builds no transform and packs nothing
-    monkeypatch.setattr(drv, "build_infercnv_fn", boom)
+    monkeypatch.setattr(drv, "sharded_infercnv_fn", boom)
     monkeypatch.setattr(drv, "pack_columns", boom)
     _, resumed, _ = _run(adata, checkpoint_dir=tmp_path / "ck")
     _same_csr(first, resumed)
@@ -99,8 +99,8 @@ def test_resume_after_partial_run(adata, tmp_path, monkeypatch, lost):
     batches = sorted((tmp_path / "ck").glob("batch_*.npz"))
     for i in lost:
         batches[i].unlink()
-    counting = _CountingBuild(drv.build_infercnv_fn)
-    monkeypatch.setattr(drv, "build_infercnv_fn", counting)
+    counting = _CountingBuild(drv.sharded_infercnv_fn)
+    monkeypatch.setattr(drv, "sharded_infercnv_fn", counting)
     events = []
     _, resumed, _ = _run(adata, checkpoint_dir=tmp_path / "ck", progress=events.append)
     _same_csr(full, resumed)
@@ -159,7 +159,7 @@ def test_resumes_a_directory_the_jax_package_wrote(tmp_path, monkeypatch, fmt):
     def boom(*a, **k):  # pragma: no cover - would indicate a failure
         raise AssertionError("the JAX package's checkpoint was not resumed")
 
-    monkeypatch.setattr(drv, "build_infercnv_fn", boom)
+    monkeypatch.setattr(drv, "sharded_infercnv_fn", boom)
     _, got, _ = _run(adata, checkpoint_dir=tmp_path / "ck")
     _same_csr(got, want.tocsr())
 

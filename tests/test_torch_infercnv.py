@@ -196,15 +196,13 @@ def test_validation_messages_identical(oligo, mutate, kw):
 
 
 @pytest.mark.parametrize(
-    "kw,item",
-    [
-        ({"device": ["cpu", "cpu"]}, "multi-device"),
-    ],
-    ids=["multi_device"],
+    "device,match",
+    [(["cpu", "cuda:0"], "more than one type"), ([], "empty")],
+    ids=["mixed_types", "empty_list"],
 )
-def test_unported_options_raise(oligo, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
-        tcnv.tl.infercnv(oligo.copy(), **kw)
+def test_bad_device_lists_raise(oligo, device, match):
+    with pytest.raises(ValueError, match=match):
+        tcnv.tl.infercnv(oligo.copy(), device=device)
 
 
 @pytest.mark.parametrize("dtype", ["float16", np.int32, torch.bfloat16])

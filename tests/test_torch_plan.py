@@ -145,3 +145,58 @@ def test_coo_from_csr_batch_equal(spec, window, step):
 @pytest.mark.parametrize("nnz", [0, 1, 1 << 20, (1 << 20) + 1, 5_000_000])
 def test_round_nnz_cap_equal(nnz):
     assert tsi.round_nnz_cap(nnz) == jsi.round_nnz_cap(nnz)
+
+
+# hg38 autosome lengths (Mb): the benchmark genome of chip_smoke.py
+_CHR_MB = np.array([248, 242, 198, 190, 181, 171, 159, 145, 138, 134, 135, 133,
+                    114, 107, 102, 90, 83, 80, 59, 64, 47, 51], dtype=float)
+
+
+def _bench_var(n_genes, seed=0):
+    """22 autosomes, genes proportional to chromosome length (``chip_smoke.make_var``)."""
+    rng = np.random.default_rng(seed)
+    counts = np.maximum(1, (_CHR_MB / _CHR_MB.sum() * n_genes)).astype(int)
+    counts[0] += n_genes - counts.sum()
+    rows = []
+    for c, k in enumerate(counts):
+        rows.extend((f"chr{c + 1}", int(s)) for s in np.sort(rng.integers(1, int(_CHR_MB[c] * 1e6), size=k)))
+    var = pd.DataFrame(rows, columns=["chromosome", "start"])
+    var["end"] = var["start"] + 1000
+    var.index = pd.Index([f"gene_{i}" for i in range(len(var))])
+    return var
+
+
+def test_packed_layout_holds_genes_past_the_last_window():
+    """At 3,000 genes a chromosome's genes past its last window overrun the JAX package's layout."""
+    import infercnvpy_tpu as cnv
+    import infercnvpy_tpu_torch as tcnv
+
+    var = _bench_var(3000)
+    with pytest.raises(ValueError, match="could not broadcast"):
+        jax_build_plan(var, 100, 10)
+    plan = build_window_plan(var, 100, 10)
+    assert plan.packed_len % (128 * 10) == 0
+    # every gene of a regular chromosome has its packed column
+    n_regular = sum(len(g) for g in var.groupby("chromosome").groups.values() if len(g) > 100)
+    assert (plan.packed_src >= 0).sum() == n_regular
+
+    rng = np.random.default_rng(5)
+    n_cells = 60
+    X = rng.normal(size=(n_cells, len(var)))  # float64: the f64 bar
+    obs = pd.DataFrame({"grp": ["ref" if i % 4 == 0 else "q" for i in range(n_cells)]},
+                       index=[f"c{i}" for i in range(n_cells)])
+    kw = dict(reference_key="grp", reference_cat="ref", chunksize=16, inplace=False)
+    pos, got, _ = tcnv.tl.infercnv(tcnv.AnnData(X=X, obs=obs, var=var), device="cpu", **kw)
+    # the tail genes lie in no window: without them the JAX package builds its plan and agrees.
+    # A chromosome keeps window_size + 1 genes, so that it stays regular (more genes than the window)
+    tail = []
+    for idx in var.groupby("chromosome").indices.values():
+        idx = idx[np.argsort(var["start"].values[idx], kind="stable")]
+        if len(idx) > 100:
+            n_win = (len(idx) - 100) // 10 + 1
+            tail.extend(idx[max(10 * (n_win - 1) + 100, 101) :])
+    assert len(tail) > 0 and (plan.gene_win_lo[np.isin(plan.used_genes, tail)] < 0).all()
+    keep = np.setdiff1d(np.arange(len(var)), tail)
+    jpos, want, _ = cnv.tl.infercnv(cnv.AnnData(X=X[:, keep], obs=obs, var=var.iloc[keep]), mesh=False, **kw)
+    assert pos == jpos
+    npt.assert_allclose(got.toarray(), want.toarray(), rtol=1e-9, atol=1e-12)
