@@ -13,13 +13,17 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
 3. kernels  — each kernel against its plain PyTorch version on the same CUDA
               tensors: the fused window kernel at 16384 cells × 20000 genes
               (rtol 1e-5, atol 1e-6) and on the synthetic genome; the row
-              median kernel bit for bit; CUDA-event times of both versions;
+              median kernel bit for bit at 1,793 and 1,794 columns (its
+              warp-a-row variant) and at 20,000 (its block-a-row variant);
+              CUDA-event times of both versions;
               then the shapes where the staged kernel can break: 1, 133 and
               15,000 rows, a width off a multiple of 4 (rows off 16 bytes),
               window / step 250 / 25 and 40 / 7 (the generic instantiation),
               60,000 genes (a row wider than shared memory),
               each also bit-identical on a second launch; selects on
               all-equal, two-valued, signed-zero, infinite and denormal rows
+              on both sides of the warp / block threshold (2,048 values),
+              each variant's launches printed
 3b. write probe — the write-bandwidth kernel in both modes at 16,384 ×
               19,968 against its plain version, bit for bit; the card's
               write rate through ``ops.probe.write_bandwidth``
@@ -44,8 +48,11 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               and even row counts at gene counts 0, 1, 2 and 3 modulo 4 (row
               starts off 16 bytes), ungated bit for bit
 7. selects  — the weighted median kernel at 16384 × 1991 (the bench plan's
-              genes per coverage group as weights, odd and even totals) and
-              the k-th smallest kernel at 16384 × 1793, bit for bit; times
+              genes per coverage group as weights, odd and even totals;
+              timed with the weights on the card and on the host) and the
+              k-th smallest kernel at 16384 × 1793 (warp variant, k = 0,
+              896, 1,792) and 16384 × 20,000 (block variant), bit for bit;
+              times
 8. gene e2e — ``tl.infercnv(calculate_gene_values=True)`` on a 30,000 ×
               20,000 CSR: every batch through the gene kernel, ``X_cnv`` bit
               for bit as without the option, chunk 0 against the CPU path,
@@ -125,6 +132,7 @@ N_GENES = 20_000
 DENSITY = 0.05
 N_NORMAL = 4_000
 KERNEL_ROWS = 16_384
+WIDE = 20_000  # a row wider than the warp select holds: K2 / K5's block variant
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 GENE_CELLS = 30_000
@@ -184,11 +192,19 @@ def make_csr(n_cells: int, n_genes: int, density: float, seed: int = 1):
     return expr
 
 
+#: clock cycles the card spins before each timed run (~2 ms on an H100), so the run's calls are queued
+#: before the first of them starts
+QUEUE_AHEAD_CYCLES = 4_000_000
+
+
 def cuda_ms(fn, reps: int = 5, inner: int = 10) -> float:
     """Time of one ``fn()`` in ms: CUDA events around ``inner`` calls in a row, median of ``reps`` such runs.
 
-    The calls of a run queue up behind each other, so the host's work per
-    launch hides behind the card's and the quotient is the device time of a call.
+    Before each run the stream spins for :data:`QUEUE_AHEAD_CYCLES` cycles,
+    and the calls queue up behind that and behind each other, so the host's
+    work per call (a wrapper's ~0.02-0.05 ms) stays out of the time even
+    where it is close to the kernel's, and the quotient is the device time of
+    a call.  A call that waits for the device (a host sync) still shows its wait.
     """
     import torch
 
@@ -198,6 +214,7 @@ def cuda_ms(fn, reps: int = 5, inner: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -339,7 +356,9 @@ def _select_edges() -> None:
 
     from infercnvpy_tpu_torch.ops import select as ts
 
-    for width in (1, 2, 257, 1793, 1794, 5000):
+    before = {fn.__name__: dict(fn.launches_by_variant) for fn in (ts.row_median_cuda, ts.row_kth_smallest_cuda)}
+    # both sides of the warp / block threshold (2,048)
+    for width in (1, 2, 257, 1793, 1794, 2048, 2049, 5000):
         x = np.random.default_rng(width).normal(size=(64, width)).astype(np.float32)
         x[:16] = 0.75
         x[16:32] = np.where(x[16:32] > 0, np.float32(1.5), np.float32(-2.0))
@@ -359,6 +378,11 @@ def _select_edges() -> None:
             w2[0] += (int(w2.sum()) + parity) % 2
             _bit_identical(ts.row_median_weighted_cuda(xd, w2), ts.row_median_weighted_plain(xd, w2),
                            f"K4 degenerate rows, width {width}, total {int(w2.sum())}")
+    for fn in (ts.row_median_cuda, ts.row_kth_smallest_cuda):
+        ran = {v: fn.launches_by_variant[v] - n for v, n in before[fn.__name__].items()}
+        if not ran["warp"] or not ran["block"]:
+            raise AssertionError(f"{fn.__name__} on the degenerate rows ran the variants {ran}: both should have run")
+        log(f"{fn.__name__} launches by variant on the degenerate rows: {ran}")
     log("selects on all-equal, two-valued, signed-zero, infinite and denormal rows (widths 1 to 5000): bit-identical")
 
 
@@ -373,7 +397,7 @@ def phase_kernels() -> list[dict]:
         window_tasks,
     )
     from infercnvpy_tpu_torch.ops.infercnv_kernel import packed_width
-    from infercnvpy_tpu_torch.ops.select import row_median_cuda, row_median_plain
+    from infercnvpy_tpu_torch.ops.select import row_median_cuda, row_median_plain, select_variant
 
     # the plain versions' conv and matmul run in full float32, not TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -404,7 +428,8 @@ def phase_kernels() -> list[dict]:
 
     k2 = []
     rng = np.random.default_rng(2)
-    for w in (1793, 1794):
+    before = dict(row_median_cuda.launches_by_variant)
+    for w in (1793, 1794, WIDE):
         x = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, w), dtype=np.float32)).cuda()
         got = row_median_cuda(x)
         want = row_median_plain(x)
@@ -419,8 +444,12 @@ def phase_kernels() -> list[dict]:
         torch.testing.assert_close(lib_out, got, rtol=1e-6, atol=1e-7)
         t_l = cuda_ms(lambda: torch.quantile(x, 0.5, dim=1, interpolation="midpoint"))
         k2.append((w, t_k, t_p, t_l))
-        log(f"K2 row_median ({KERNEL_ROWS}, {w}): bit-identical; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
-            f"torch.quantile(midpoint) {t_l:.3f} ms")
+        log(f"K2 row_median ({KERNEL_ROWS}, {w}), {select_variant(w)} variant: bit-identical; kernel {t_k:.3f} ms, "
+            f"plain {t_p:.3f} ms, torch.quantile(midpoint) {t_l:.3f} ms")
+        del x, got, want, lib_out
+    ran = {v: row_median_cuda.launches_by_variant[v] - n for v, n in before.items()}
+    if not ran["warp"] or not ran["block"]:
+        raise AssertionError(f"K2's checks ran the variants {ran}: both should have run")
     _select_edges()
 
     return [
@@ -438,9 +467,13 @@ def phase_kernels() -> list[dict]:
             "replaces": "infercnvpy_tpu/ops/pallas_select.py:79", "launches": None, "max_abs_err": 0.0,
             "ms": k2[0][1], "plain_ms": k2[0][2], "ms_even_width": k2[1][1], "plain_ms_even_width": k2[1][2],
             "library_ms": k2[0][3], "library": 'torch.quantile(x, 0.5, dim=1, interpolation="midpoint")',
-            "library_ms_even_width": k2[1][3],
+            "library_ms_even_width": k2[1][3], "variant": select_variant(1793),
+            "launches_by_variant": {"warp": None, "block": None},
             # 4 passes, each a key compare and a histogram add per value
             **bound(KERNEL_ROWS * (1793 + 1) * 4, KERNEL_ROWS * 1793 * 4 * 2),
+            "bound_ms_even_width": bound(KERNEL_ROWS * (1794 + 1) * 4, KERNEL_ROWS * 1794 * 4 * 2)["bound_ms"],
+            "wide": {"width": WIDE, "variant": select_variant(WIDE), "ms": k2[2][1], "plain_ms": k2[2][2],
+                     "library_ms": k2[2][3], **bound(KERNEL_ROWS * (WIDE + 1) * 4, KERNEL_ROWS * WIDE * 4 * 2)},
         },
     ]
 
@@ -1324,6 +1357,7 @@ def phase_select_kernels() -> list[dict]:
         row_kth_smallest_plain,
         row_median_weighted_cuda,
         row_median_weighted_plain,
+        select_variant,
     )
 
     gpd = gene_projection_data(build_window_plan(make_var(N_GENES), 100, 10))
@@ -1340,14 +1374,17 @@ def phase_select_kernels() -> list[dict]:
             _bit_identical(row_median_weighted_cuda(vals, wd), row_median_weighted_plain(vals, wd),
                            f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), {label} total {int(wts.sum())}")
         k4[label] = (int(wts.sum()), cuda_ms(lambda: row_median_weighted_cuda(x, wd)),
-                     cuda_ms(lambda: row_median_weighted_plain(x, wd)))
+                     cuda_ms(lambda: row_median_weighted_plain(x, wd)),
+                     cuda_ms(lambda: row_median_weighted_cuda(x, wts)))
         log(f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), total {k4[label][0]}: bit-identical "
-            f"(continuous and tied values); kernel {k4[label][1]:.3f} ms, plain {k4[label][2]:.3f} ms")
+            f"(continuous and tied values); kernel {k4[label][1]:.3f} ms with the weights on the card, "
+            f"{k4[label][3]:.3f} ms with them on the host, plain {k4[label][2]:.3f} ms")
     del x, ties
 
     w = 1793
     x = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, w), dtype=np.float32)).cuda()
     k5 = {}
+    before = dict(row_kth_smallest_cuda.launches_by_variant)
     for k in (0, w // 2, w - 1):
         _bit_identical(row_kth_smallest_cuda(x, k), row_kth_smallest_plain(x, k),
                        f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}")
@@ -1356,15 +1393,28 @@ def phase_select_kernels() -> list[dict]:
                        f"torch.kthvalue ({KERNEL_ROWS}, {w}), k={k}")
         k5[k] = (cuda_ms(lambda: row_kth_smallest_cuda(x, k)), cuda_ms(lambda: row_kth_smallest_plain(x, k)),
                  cuda_ms(lambda: torch.kthvalue(x, k + 1, dim=1)))
-        log(f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}: bit-identical; kernel {k5[k][0]:.3f} ms, "
-            f"plain {k5[k][1]:.3f} ms, torch.kthvalue {k5[k][2]:.3f} ms")
+        log(f"K5 row_kth_smallest ({KERNEL_ROWS}, {w}), k={k}, {select_variant(w)} variant: bit-identical; "
+            f"kernel {k5[k][0]:.3f} ms, plain {k5[k][1]:.3f} ms, torch.kthvalue {k5[k][2]:.3f} ms")
     del x
+    xw = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, WIDE), dtype=np.float32)).cuda()
+    kw = WIDE // 2
+    _bit_identical(row_kth_smallest_cuda(xw, kw), row_kth_smallest_plain(xw, kw),
+                   f"K5 row_kth_smallest ({KERNEL_ROWS}, {WIDE}), k={kw}")
+    k5_wide = (cuda_ms(lambda: row_kth_smallest_cuda(xw, kw)), cuda_ms(lambda: row_kth_smallest_plain(xw, kw)),
+               cuda_ms(lambda: torch.kthvalue(xw, kw + 1, dim=1)))
+    log(f"K5 row_kth_smallest ({KERNEL_ROWS}, {WIDE}), k={kw}, {select_variant(WIDE)} variant: bit-identical; "
+        f"kernel {k5_wide[0]:.3f} ms, plain {k5_wide[1]:.3f} ms, torch.kthvalue {k5_wide[2]:.3f} ms")
+    del xw
+    ran = {v: row_kth_smallest_cuda.launches_by_variant[v] - n for v, n in before.items()}
+    if not ran["warp"] or not ran["block"]:
+        raise AssertionError(f"K5's checks ran the variants {ran}: both should have run")
     return [
         {
             "name": "row_median_weighted", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",
             "replaces": "infercnvpy_tpu/ops/pallas_select.py:154", "launches": None, "max_abs_err": 0.0,
             "ms": k4["even"][1], "plain_ms": k4["even"][2], "ms_odd_total": k4["odd"][1],
-            "plain_ms_odd_total": k4["odd"][2], "library_ms": None,
+            "plain_ms_odd_total": k4["odd"][2], "ms_host_weights": k4["even"][3],
+            "ms_odd_total_host_weights": k4["odd"][3], "library_ms": None,
             **bound(KERNEL_ROWS * (gpd.n_groups + 1) * 4 + gpd.n_groups * 4, KERNEL_ROWS * gpd.n_groups * 4 * 2),
         },
         {
@@ -1373,8 +1423,12 @@ def phase_select_kernels() -> list[dict]:
             "ms": k5[w // 2][0], "plain_ms": k5[w // 2][1],
             "ms_by_k": {str(k): v[0] for k, v in k5.items()}, "plain_ms_by_k": {str(k): v[1] for k, v in k5.items()},
             "library_ms": k5[w // 2][2], "library": "torch.kthvalue(x, k + 1, dim=1)",
-            "library_ms_by_k": {str(k): v[2] for k, v in k5.items()},
+            "library_ms_by_k": {str(k): v[2] for k, v in k5.items()}, "variant": select_variant(w),
+            "launches_by_variant": {"warp": None, "block": None},
             **bound(KERNEL_ROWS * (w + 1) * 4, KERNEL_ROWS * w * 4 * 2),
+            "wide": {"width": WIDE, "k": kw, "variant": select_variant(WIDE), "ms": k5_wide[0],
+                     "plain_ms": k5_wide[1], "library_ms": k5_wide[2],
+                     **bound(KERNEL_ROWS * (WIDE + 1) * 4, KERNEL_ROWS * WIDE * 4 * 2)},
         },
     ]
 
@@ -1396,10 +1450,16 @@ def _kernel_wrappers() -> dict:
 def _reset_counts() -> None:
     for fn in _kernel_wrappers().values():
         fn.launches = 0
+        for variant in getattr(fn, "launches_by_variant", {}):
+            fn.launches_by_variant[variant] = 0
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    """Each kernel's launches, and for K2 / K5 each variant's as ``"row_median.warp"`` etc."""
+    counts = {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    for name, fn in _kernel_wrappers().items():
+        counts.update({f"{name}.{v}": n for v, n in getattr(fn, "launches_by_variant", {}).items()})
+    return counts
 
 
 def phase_gene_e2e() -> dict:
@@ -1787,9 +1847,16 @@ def main() -> int:
     }
     on_path = [kernels[0], gene_kernel]
     off_path = [kernels[1], *selects]
+
+    def path_launches(key):
+        return (e2e_launches[key] + gene_e2e["launches"][key] + downstream["launches"][key]
+                + sum(n[key] for n in multi["launches_by_path"].values()))
+
     for k in off_path:
-        k["launches"] = (e2e_launches[k["name"]] + gene_e2e["launches"][k["name"]] + downstream["launches"][k["name"]]
-                         + sum(n[k["name"]] for n in multi["launches_by_path"].values()))
+        k["launches"] = path_launches(k["name"])
+        if "launches_by_variant" in k:
+            k["launches_by_variant"] = {v: path_launches(f"{k['name']}.{v}") for v in k["launches_by_variant"]}
+            log(f"{k['name']} launches on the paths by variant: {k['launches_by_variant']}")
     for k in [*on_path, *off_path, probe]:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(smi)

@@ -5,17 +5,22 @@
 //     values repeated by one int32 weight per column, np.median(np.repeat(row,
 //     w)); a zero weight masks its column;
 //   * row_kth_smallest's inner kernel: the exact k-th smallest (0-based).
-// Both run the select routine of select.cuh (a 4-pass radix select over
-// order-preserving keys), the weighted form adding weights to the histogram
-// bins where the median adds ones.
+// Both run a 4-pass radix select over order-preserving keys, the weighted
+// form adding weights to the histogram bins where the others add ones.  The
+// k-th smallest has two variants, chosen by the row's width in
+// ops/select.py::row_kth_smallest_cuda, as the median of row_median.cu has:
+// row_kth_smallest_warp_kernel (one warp a row, warp_select.cuh) up to
+// kWarpMaxWidth values, row_kth_smallest_kernel (one block a row, select.cuh)
+// above.  The weighted median runs the block select of select.cuh, one block
+// a row, at every width.
 //
 // What bounds them on an H100: as for row_median.cu, bytes: each row is read
 // from device memory once (width * 4 bytes, 8 KB at 1,991 columns; the
-// weights come from the cache) and one float is written.  Keys and weights
-// stay in registers across the passes, so a block waits only for the 10
-// block-wide synchronisations of the select.  One block per row.
+// weights come from the cache) and one float is written.  In the block
+// kernels keys and weights stay in registers across the passes, so a block
+// waits only for the 10 block-wide synchronisations of the select.
 
-#include "select.cuh"
+#include "warp_select.cuh"
 
 namespace infercnv {
 
@@ -26,6 +31,11 @@ __global__ void __launch_bounds__(1024) row_median_weighted_kernel(const float* 
   const float* row = x + static_cast<long long>(blockIdx.x) * width;
   const float med = block_weighted_median<true>(row, wts, width, total, hist);
   if (threadIdx.x == 0) out[blockIdx.x] = med;
+}
+
+__global__ void __launch_bounds__(kWarpThreads, kWarpBlocksPerSm)
+    row_kth_smallest_warp_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int width, int k) {
+  warp_select_rows<kWarpMaxKeys, false>(x, out, rows, width, k);
 }
 
 __global__ void __launch_bounds__(1024) row_kth_smallest_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -47,6 +57,14 @@ int row_median_weighted_launch(const void* x, const void* wts, void* out, int ro
   infercnv::row_median_weighted_kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int*>(wts), static_cast<float*>(out), width, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 0 <= k < width <= 2,048 (the wrapper checks them).
+int row_kth_smallest_warp_launch(const void* x, void* out, int rows, int width, int k, void* stream) {
+  using namespace infercnv;
+  if (width < 1 || width > kWarpMaxWidth || k < 0 || k >= width) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_warp_rows(&row_kth_smallest_warp_kernel, rows, static_cast<cudaStream_t>(stream),
+                          static_cast<const float*>(x), static_cast<float*>(out), rows, width, k);
 }
 
 // 0 <= k < width; the wrapper checks it.

@@ -27,7 +27,7 @@ __all__ = ["library", "build", "bind", "compile_sources", "check", "current_stre
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("select.cuh", "fused_window.cu", "row_median.cu", "row_select.cu", "gene_project.cu", "write_probe.cu")
+SOURCES = ("select.cuh", "warp_select.cuh", "fused_window.cu", "row_median.cu", "row_select.cu", "gene_project.cu", "write_probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
@@ -40,11 +40,15 @@ _SIGNATURES = {
     "fused_window_launch": (_P, _P, _P, _P, _P, _P, _P, *([_I] * 18), _F, _F, _P),
     # x, out, rows, width, threads, stream
     "row_median_launch": (_P, _P, _I, _I, _I, _P),
+    # x, out, rows, width, stream
+    "row_median_warp_launch": (_P, _P, _I, _I, _P),
     "fused_window_smem_budget": (_I,),
     # x, wts, out, rows, width, total, threads, stream
     "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, rows, width, k, threads, stream
     "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _I, _P),
+    # x, out, rows, width, k, stream
+    "row_kth_smallest_warp_launch": (_P, _P, _I, _I, _I, _P),
     # x, thr, g_lo, g_hi, g_counts, gidx, packed4, out, rows, n_windows, n_groups, n_covered, packed_stride,
     # gate, max_smem, threads, stream
     "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -1,24 +1,34 @@
 """Time this tree's kernels against another checkout's, in turns, on one card.
 
-    python -m infercnvpy_tpu_torch.ops.compare --parent DIR [--sweep] [--e2e [CASE ...]] [--no-kernels]
+    python -m infercnvpy_tpu_torch.ops.compare --parent DIR [--sweep] [--smoke N] [--e2e [CASE ...]] [--no-kernels]
 
-``DIR`` is the root of another checkout of the repository whose kernels still
-have the bisection select's C interface (``fused_window_launch`` taking
-``gmap`` and ``small_off``, ``gene_project_launch`` taking one ``gidx``), e.g.
+``DIR`` is the root of another checkout of the repository whose kernels have
+the C interface of :data:`PARENT_SIGNATURES` (commit 907b0c4's: K1, K3 and K6
+as in this tree, the select kernels one block a row), e.g.
 
-    mkdir parent_tree && git archive <commit> | tar -x -C parent_tree
+    mkdir parent_tree && git archive 907b0c4 | tar -x -C parent_tree
 
-Its ``csrc/`` is built into a second library in a temporary directory and the
-kernels are launched through ctypes with their index tables uploaded once, so
-what is timed is the kernel alone on both sides.  At 16,384 rows of the
-benchmark genome (20,000 genes, window 100, step 10) each of K1-K5 is timed
-in the order parent, this tree, this tree, parent (CUDA events around
-``--reps`` launches in a row, median of 5 such runs after a warm-up), and this tree's result is held against
-the parent's (K2, K4, K5 and ungated K3 bit for bit; K1 at rtol 1e-5 /
-atol 1e-6).
+Its ``csrc/`` is built into a second library in a temporary directory.  K1
+and K3, whose interface this tree keeps, run through this tree's wrappers
+with the parent's library in place of this tree's; K2, K4 and K5 are
+launched through ctypes with the parent's arguments.  At 16,384 rows of the
+benchmark genome (20,000 genes, window 100, step 10) each kernel is timed in
+the order parent, this tree, this tree, parent (CUDA events around ``--reps``
+launches in a row, median of 5 such runs after a warm-up): K1; K3 gated; K2
+at 1,793 and 1,794 columns; K5 at 1,793 columns, k = 0, 896 and 1,792; K4 at
+the plan's 1,991 groups with its weights, kernel against kernel.  This tree's
+result is held against the parent's (K2, K4, K5 and ungated K3 bit for bit;
+K1 at rtol 1e-5 / atol 1e-6).  K4's wrapper is also timed in turns: the
+parent's ``ops/select.py`` (loaded from ``DIR``, launching the parent's
+library) against this tree's, with the weights on the device and on the host.
 
-``--sweep`` times this tree's kernels at other block sizes (32 threads is one
-warp per row).  ``--e2e [CASE ...]`` runs the named cases (all of
+``--sweep`` times this tree's block select kernels (K4, and K2 / K5 at 1,793
+columns) at 32 to 1,024 threads a block through their C entry points, then K3
+and K1 through their wrappers (the warp kernels' warps a block are a
+constant of their source: ``ops/variants.py``'s ``warp_*_warps`` time other
+counts).  ``--smoke N`` runs ``chip_smoke.py``'s kernel phases (3 and 7) N
+times and prints each run's K1-K5 times.
+``--e2e [CASE ...]`` runs the named cases (all of
 :data:`E2E_CASES` without names) from both trees, in the same order, one
 process per turn: ``tl.infercnv`` on the 102,400-cell and the 30,000-cell
 gene inputs of ``chip_smoke.py``, the downstream chain of its phase 9b
@@ -27,8 +37,8 @@ gene inputs of ``chip_smoke.py``, the downstream chain of its phase 9b
 ``tl.infercnv`` on float64 input on the card (the plain pipeline in float64)
 and on the CPU in float32 and float64 at 20,480 cells, and the plain version
 of K1 at 16,384 rows in float32 and float64 on the card.  ``--no-kernels``
-skips the kernel comparison, for a parent whose kernels have this tree's C
-interface.  Prints one JSON line per measurement; needs a CUDA device.
+skips the kernel comparison.  Prints one JSON line per measurement; needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -45,13 +55,21 @@ import numpy as np
 
 ROWS = 16_384
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the C interface of ``ops/_build.py`` at commit 907b0c4
 PARENT_SIGNATURES = {
-    "fused_window_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "row_median_launch": (_P, _P, _I, _I, _P),
-    "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _P),
-    "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _P),
-    "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fused_window_launch": (_P, _P, _P, _P, _P, _P, _P, *([_I] * 18), _F, _F, _P),
+    # x, out, rows, width, threads, stream
+    "row_median_launch": (_P, _P, _I, _I, _I, _P),
+    "fused_window_smem_budget": (_I,),
+    # x, wts, out, rows, width, total, threads, stream
+    "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, rows, width, k, threads, stream
+    "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _I, _P),
+    "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "gene_project_max_smem": (),
+    "write_probe_launch": (_P, _P, _I, _I, _I, _I, _P),
 }
+PARENT_THREADS = 256  #: the parent's ``ops/select.py::THREADS``
 
 E2E_SNIPPET = """
 import json, sys, time
@@ -131,7 +149,7 @@ def _emit(**kw) -> None:
 
 
 def build_parent(parent: Path, out_dir: Path) -> ctypes.CDLL:
-    """Compile ``parent``'s ``csrc/*.cu`` into ``out_dir`` and load it with the bisection kernels' signatures."""
+    """Compile ``parent``'s ``csrc/*.cu`` into ``out_dir`` and load it with :data:`PARENT_SIGNATURES`."""
     from . import _build
 
     lib_path = out_dir / "libparent.so"
@@ -140,25 +158,11 @@ def build_parent(parent: Path, out_dir: Path) -> ctypes.CDLL:
 
 
 def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
-    """Time of one ``fn()`` in ms: CUDA events around ``reps`` launches in a row, median of ``rounds`` such runs.
+    """Time of one ``fn()`` in ms: ``chip_smoke.cuda_ms`` (CUDA events around ``reps`` launches queued behind a
+    spin of the stream, median of ``rounds`` such runs), so both scripts time a kernel alike."""
+    import chip_smoke as cs
 
-    The launches of a run queue up behind each other, so the host's work per
-    launch hides behind the card's and the quotient is the kernel's time.
-    """
-    import torch
-
-    fn()
-    times = []
-    for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return float(np.median(times))
+    return cs.cuda_ms(fn, reps=rounds, inner=reps)
 
 
 def _turns(name: str, parent_fn, change_fn, reps: int, **extra) -> None:
@@ -170,12 +174,58 @@ def _turns(name: str, parent_fn, change_fn, reps: int, **extra) -> None:
           speedup=float(np.mean(ms["parent"]) / np.mean(ms["change"])), **extra)
 
 
+def _wrapper_times(fn, reps: int) -> dict:
+    """A wrapper's CUDA-event time and the host's time to enqueue one call (no wait in between), in ms."""
+    import time
+
+    import torch
+
+    ms = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return {"wrapper_ms": ms, "wrapper_enqueue_ms": enqueue}
+
+
 def _checked(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def compare_kernels(plib: ctypes.CDLL, reps: int) -> None:
+class _ParentLibrary:
+    """Within ``with``: this tree's wrappers launch the parent's library (for kernels whose interface is unchanged)."""
+
+    def __init__(self, plib):
+        self.plib = plib
+
+    def __enter__(self):
+        from . import _build
+
+        self.keep = _build._LIB
+        _build._LIB = self.plib
+
+    def __exit__(self, *exc):
+        from . import _build
+
+        _build._LIB = self.keep
+
+
+def parent_select(parent: Path):
+    """The parent's ``ops/select.py`` as a module beside this tree's: its ``from . import _build`` is this tree's,
+    so within :class:`_ParentLibrary` its wrappers launch the parent's library."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "infercnvpy_tpu_torch.ops._parent_select", parent / "infercnvpy_tpu_torch" / "ops" / "select.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def compare_kernels(plib: ctypes.CDLL, psel, reps: int) -> None:
     import torch
 
     import chip_smoke as cs
@@ -183,134 +233,159 @@ def compare_kernels(plib: ctypes.CDLL, reps: int) -> None:
     from ..genome import build_window_plan
     from . import fused, gene, select
     from ._build import current_stream, library
-    from .infercnv_kernel import packed_width, small_offsets
+    from .infercnv_kernel import packed_width
 
     dev = torch.device("cuda")
     plan = build_window_plan(cs.make_var(cs.N_GENES), 100, 10)
     rng = np.random.default_rng(0)
     width = packed_width(plan)
     stream = lambda: current_stream(dev)  # noqa: E731
+    parent = _ParentLibrary(plib)
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{what}: this tree's result differs from the parent's")
 
     # K1
     x = torch.from_numpy(rng.standard_normal((ROWS, width), dtype=np.float32)).to(dev)
     ref = rng.standard_normal((2, width), dtype=np.float32)
     ref2 = torch.from_numpy(np.stack([ref.min(0), ref.max(0)])).to(dev)
-    gmap = torch.from_numpy(fused.final_gather_map(plan)).to(dev)
-    soff = torch.from_numpy(small_offsets(plan)).to(dev)
-    p_out = torch.empty((ROWS, plan.n_windows), dtype=torch.float32, device=dev)
-    p_stats = torch.empty((ROWS, 3), dtype=torch.float32, device=dev)
-    s = plan.step
 
-    def k1_parent():
-        _checked(plib.fused_window_launch(
-            x.data_ptr(), ref2.data_ptr(), gmap.data_ptr(), soff.data_ptr(), p_out.data_ptr(), p_stats.data_ptr(),
-            ROWS, width, plan.n_windows, fused._conv_region_windows(plan), plan.packed_len // s, s,
-            plan.window_size, 0, 3.0, float(np.float32(1.0 / plan.pyramid_sum)), stream()), "parent K1")
-
-    def k1_change():
+    def k1():
         return fused.fused_center_smooth_median_cuda(x, ref2, plan, lfc_clip=3.0, n_ref=2)
 
-    k1_parent()
-    got = k1_change()
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got[0], p_out, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(got[3], p_stats[:, 2], rtol=1e-5, atol=1e-6)
-    _turns("fused_window", k1_parent, k1_change, reps, max_abs_diff=float((got[0] - p_out).abs().max()))
-    del x, p_out, got
+    def k1_parent():
+        with parent:
+            return k1()
 
-    # K3, gated
+    want = k1_parent()
+    got = k1()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+    _turns("fused_window", k1_parent, k1, reps, max_abs_diff=float((got[0] - want[0]).abs().max()))
+    del x, got, want
+
+    # K3
     gpd = gene.gene_projection_data(plan)
     xw = torch.from_numpy(rng.standard_normal((ROWS, plan.n_windows), dtype=np.float32)).to(dev)
     thr = torch.from_numpy(rng.uniform(0.0, 1.0, ROWS).astype(np.float32)).to(dev)
-    tabs = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
-            for a in (gpd.g_lo, gpd.g_hi, gpd.g_counts, gpd.gidx_sorted)]
-    g_out = torch.empty((ROWS, gpd.total), dtype=torch.float32, device=dev)
 
-    def k3_parent(gate=1):
-        _checked(plib.gene_project_launch(
-            xw.data_ptr(), thr.data_ptr(), *(t.data_ptr() for t in tabs), g_out.data_ptr(), ROWS, plan.n_windows,
-            gpd.n_groups, gpd.total, gate, stream()), "parent K3")
+    def k3(gate=True):
+        return gene.gene_project_cuda(xw, thr, gpd, gate=gate)
 
-    for gate in (0, 1):
-        k3_parent(gate)
-        got = gene.gene_project_cuda(xw, thr, gpd, gate=bool(gate))
+    def k3_parent(gate=True):
+        with parent:
+            return k3(gate)
+
+    for gate in (False, True):
+        want = k3_parent(gate)
+        got = k3(gate)
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), g_out.view(torch.int32)):
-            raise AssertionError(f"K3 gate={gate}: this tree's result differs from the parent's")
-        del got
-    _turns("gene_project", k3_parent, lambda: gene.gene_project_cuda(xw, thr, gpd, gate=True), reps)
-    del g_out, xw
+        if not gate:
+            same(got, want, "K3 ungated")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        del got, want
+    _turns("gene_project", k3_parent, k3, reps)
+    del xw
 
-    # K2, K5 at 1,793; K4 at 1,991 with the plan's weights
-    xm = torch.from_numpy(rng.standard_normal((ROWS, plan.n_windows), dtype=np.float32)).to(dev)
-    m_out = torch.empty((ROWS,), dtype=torch.float32, device=dev)
-    w = plan.n_windows
-
-    def same(got, what):
-        torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), m_out.view(torch.int32)):
-            raise AssertionError(f"{what}: this tree's result differs from the parent's")
-
-    def k2_parent():
-        _checked(plib.row_median_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, stream()), "parent K2")
-
-    k2_parent()
-    same(select.row_median_cuda(xm), "K2")
-    _turns("row_median", k2_parent, lambda: select.row_median_cuda(xm), reps)
-
-    def k5_parent():
-        _checked(plib.row_kth_smallest_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, w // 2, stream()), "parent K5")
-
-    k5_parent()
-    same(select.row_kth_smallest_cuda(xm, w // 2), "K5")
-    _turns("row_kth_smallest", k5_parent, lambda: select.row_kth_smallest_cuda(xm, w // 2), reps)
-
-    xg = torch.from_numpy(rng.standard_normal((ROWS, gpd.n_groups), dtype=np.float32)).to(dev)
-    wts = torch.from_numpy(gpd.g_counts.astype(np.int32)).to(dev)
-
-    def k4_parent():
-        _checked(plib.row_median_weighted_launch(
-            xg.data_ptr(), wts.data_ptr(), m_out.data_ptr(), ROWS, gpd.n_groups, gpd.total, stream()), "parent K4")
-
-    k4_parent()
-    same(select.row_median_weighted_cuda(xg, wts), "K4")
+    # K2 at 1,793 and 1,794, K5 at 1,793: kernel against kernel through the C entry points, then this
+    # tree's wrapper (CUDA events, and the host's time to enqueue a call)
     lib = library()
+    m_out = torch.empty((ROWS,), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(m_out)
+    for w in (plan.n_windows, plan.n_windows + 1):
+        xm = torch.from_numpy(rng.standard_normal((ROWS, w), dtype=np.float32)).to(dev)
 
-    def k4_change():
-        # the wrapper's checks of the weights synchronise with the host; launch as the parent is launched
-        _checked(lib.row_median_weighted_launch(
-            xg.data_ptr(), wts.data_ptr(), c_out.data_ptr(), ROWS, gpd.n_groups, gpd.total, select.THREADS,
-            stream()), "K4")
+        def k2_parent():
+            _checked(plib.row_median_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, PARENT_THREADS, stream()),
+                     "parent K2")
 
-    _turns("row_median_weighted", k4_parent, k4_change, reps)
+        def k2_change():
+            _checked(lib.row_median_warp_launch(xm.data_ptr(), c_out.data_ptr(), ROWS, w, stream()), "K2")
+
+        k2_parent()
+        k2_change()
+        same(c_out, m_out, f"K2 at {w}")
+        same(select.row_median_cuda(xm), m_out, f"K2 wrapper at {w}")
+        _turns("row_median", k2_parent, k2_change, reps, width=w, variant=select.select_variant(w),
+               **_wrapper_times(lambda: select.row_median_cuda(xm), reps))
+
+    w = plan.n_windows
+    xm = torch.from_numpy(rng.standard_normal((ROWS, w), dtype=np.float32)).to(dev)
+    for k in (0, w // 2, w - 1):
+        def k5_parent():
+            _checked(plib.row_kth_smallest_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, k, PARENT_THREADS,
+                                                  stream()), "parent K5")
+
+        def k5_change():
+            _checked(lib.row_kth_smallest_warp_launch(xm.data_ptr(), c_out.data_ptr(), ROWS, w, k, stream()), "K5")
+
+        k5_parent()
+        k5_change()
+        same(c_out, m_out, f"K5 k={k}")
+        same(select.row_kth_smallest_cuda(xm, k), m_out, f"K5 wrapper k={k}")
+        _turns("row_kth_smallest", k5_parent, k5_change, reps, width=w, k=k, variant=select.select_variant(w),
+               **_wrapper_times(lambda: select.row_kth_smallest_cuda(xm, k), reps))
+    del xm
+
+    # K4: the kernel is unchanged; kernel against kernel, then the parent's wrapper against this tree's
+    xg = torch.from_numpy(rng.standard_normal((ROWS, gpd.n_groups), dtype=np.float32)).to(dev)
+    wts_host = gpd.g_counts.astype(np.int32)
+    wts = torch.from_numpy(wts_host).to(dev)
+
+    def k4_launch(which, out):
+        _checked(which.row_median_weighted_launch(
+            xg.data_ptr(), wts.data_ptr(), out.data_ptr(), ROWS, gpd.n_groups, gpd.total, PARENT_THREADS, stream()),
+            "K4")
+
+    k4_launch(plib, m_out)
+    same(select.row_median_weighted_cuda(xg, wts_host), m_out, "K4")
+    same(select.row_median_weighted_cuda(xg, wts), m_out, "K4, weights on the device")
+    _turns("row_median_weighted", lambda: k4_launch(plib, m_out), lambda: k4_launch(lib, c_out), reps)
+    for where, weights in (("device", wts), ("host", wts_host)):
+        def k4_parent_wrapper():
+            with parent:
+                return psel.row_median_weighted_cuda(xg, weights)
+
+        same(k4_parent_wrapper(), m_out, f"parent K4 wrapper, weights on the {where}")
+        _turns("row_median_weighted_wrapper", k4_parent_wrapper,
+               lambda: select.row_median_weighted_cuda(xg, weights), reps, weights_on=where)
 
 
 def sweep(reps: int) -> None:
-    """This tree's kernels at other block sizes (32 threads: one warp per row)."""
+    """This tree's kernels at other block sizes."""
     import torch
 
     import chip_smoke as cs
 
     from ..genome import build_window_plan
-    from . import fused, gene, select
+    from . import fused, gene
+    from ._build import current_stream, library
     from .infercnv_kernel import packed_width
 
     dev = torch.device("cuda")
     plan = build_window_plan(cs.make_var(cs.N_GENES), 100, 10)
     gpd = gene.gene_projection_data(plan)
     rng = np.random.default_rng(1)
-    xm = torch.from_numpy(rng.standard_normal((ROWS, plan.n_windows), dtype=np.float32)).to(dev)
+    w = plan.n_windows
+    xm = torch.from_numpy(rng.standard_normal((ROWS, w), dtype=np.float32)).to(dev)
     xg = torch.from_numpy(rng.standard_normal((ROWS, gpd.n_groups), dtype=np.float32)).to(dev)
     wts = torch.from_numpy(gpd.g_counts.astype(np.int32)).to(dev)
-    keep = select.THREADS
+    out = torch.empty((ROWS,), dtype=torch.float32, device=dev)
+    lib = library()
+    stream = current_stream(dev)
     for threads in (32, 64, 128, 256, 512, 1024):
-        select.THREADS = threads
-        _emit(sweep="selects", threads=threads,
-              row_median_ms=cuda_ms(lambda: select.row_median_cuda(xm), reps),
-              row_kth_smallest_ms=cuda_ms(lambda: select.row_kth_smallest_cuda(xm, plan.n_windows // 2), reps),
-              row_median_weighted_ms=cuda_ms(lambda: select.row_median_weighted_cuda(xg, wts), reps))
-    select.THREADS = keep
+        _emit(sweep="block_selects", threads=threads, width=w,
+              row_median_ms=cuda_ms(lambda: lib.row_median_launch(
+                  xm.data_ptr(), out.data_ptr(), ROWS, w, threads, stream), reps),
+              row_kth_smallest_ms=cuda_ms(lambda: lib.row_kth_smallest_launch(
+                  xm.data_ptr(), out.data_ptr(), ROWS, w, w // 2, threads, stream), reps),
+              row_median_weighted_ms=cuda_ms(lambda: lib.row_median_weighted_launch(
+                  xg.data_ptr(), wts.data_ptr(), out.data_ptr(), ROWS, gpd.n_groups, gpd.total, threads, stream),
+                  reps))
     thr = torch.from_numpy(rng.uniform(0.0, 1.0, ROWS).astype(np.float32)).to(dev)
     keep = gene.THREADS
     for threads in (128, 256, 512, 1024):
@@ -328,6 +403,17 @@ def sweep(reps: int) -> None:
         _emit(sweep="fused_window", threads=threads,
               ms=cuda_ms(lambda: fused.fused_center_smooth_median_cuda(x, ref2, plan, lfc_clip=3.0, n_ref=2), reps))
     fused.THREADS = keep
+
+
+def smoke_repeats(n: int) -> None:
+    """``chip_smoke.py``'s kernel phases (3 and 7) ``n`` times: each run's K1-K5 times, checks included."""
+    import chip_smoke as cs
+
+    for run in range(n):
+        rows = cs.phase_kernels() + cs.phase_select_kernels()
+        times = {row["name"]: {k: v for k, v in row.items() if k == "ms" or k.startswith("ms_")}
+                 | ({"wide_ms": row["wide"]["ms"]} if "wide" in row else {}) for row in rows}
+        _emit(smoke_run=run, ms=times)
 
 
 def compare_e2e(parent: Path, runs: int, names) -> None:
@@ -360,6 +446,7 @@ def main(argv=None) -> int:
     ap.add_argument("--e2e", nargs="*", choices=sorted(E2E_CASES), metavar="CASE",
                     help="also compare these walls (every case without names): " + ", ".join(E2E_CASES))
     ap.add_argument("--no-kernels", action="store_true", help="skip the kernel comparison")
+    ap.add_argument("--smoke", type=int, default=0, metavar="N", help="run chip_smoke.py's kernel phases N times")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--runs", type=int, default=3, help="timed tl.infercnv runs per process")
     args = ap.parse_args(argv)
@@ -376,7 +463,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # chip_smoke's generators
     if args.parent is not None and not args.no_kernels:
         with tempfile.TemporaryDirectory() as td:
-            compare_kernels(build_parent(args.parent.resolve(), Path(td)), args.reps)
+            compare_kernels(build_parent(args.parent.resolve(), Path(td)), parent_select(args.parent.resolve()),
+                            args.reps)
+    if args.smoke:
+        smoke_repeats(args.smoke)
     if args.sweep:
         sweep(args.reps)
     if args.e2e is not None:

@@ -11,13 +11,21 @@ lower bits flipped; -0 sorts just below +0).  The map is an involution.
 
 * the ``*_plain`` versions sort the keys (any device, f32 or f64);
 * the ``*_cuda`` versions launch ``csrc/row_median.cu`` and
-  ``csrc/row_select.cu`` (f32, CUDA): one block per row, a 4-pass radix
-  select over the keys with (weighted) 256-bin histograms — the same
-  ``__device__`` select routine as the fused and gene kernels
-  (``csrc/select.cuh``).  Both return bit-identical results on the same input;
-* :func:`radix_select_emulated` repeats that routine's arithmetic (digits,
-  histograms, bin scan, the two ranks of an even total) in numpy, so the CPU
-  tests can hold the algorithm against the key-sort versions.
+  ``csrc/row_select.cu`` (f32, CUDA): a 4-pass radix select over the keys
+  with (weighted) 256-bin histograms.  The median and the k-th smallest have
+  two variants, chosen by width: up to :data:`WARP_MAX_WIDTH` values one warp
+  a row, the row staged by a bulk copy and its keys held in registers
+  (``csrc/warp_select.cuh``), above it one
+  block a row on the block select that the fused and gene kernels also run
+  (``csrc/select.cuh``), as the weighted median does at every width.  All
+  return results bit-identical to the plain versions on the same input;
+* :func:`radix_select_emulated` repeats the block routine's arithmetic
+  (digits, histograms, bin scan, the two ranks of an even total) in numpy,
+  :func:`warp_select_emulated` the warp routine's (lane layout, histogram
+  copies, the list of the chosen bins, the upper middle), :func:`warp_row_walk`
+  / :func:`persistent_grid` the rows each warp takes and
+  :func:`row_stage_split` the staging of a row, so the CPU tests can hold them
+  against the key-sort versions.
 
 Each dispatcher takes the kernel for a CUDA tensor (f32 only; anything else
 raises) and the plain version for a CPU tensor.
@@ -35,13 +43,21 @@ __all__ = [
     "row_median_weighted", "row_median_weighted_plain", "row_median_weighted_cuda",
     "row_kth_smallest", "row_kth_smallest_plain", "row_kth_smallest_cuda",
     "float_key", "key_to_float", "radix_select_emulated", "median_ranks",
+    "select_variant", "warp_select_emulated", "warp_row_walk", "persistent_grid", "lane_slots",
+    "row_stage_split",
 ]
 
 _INT_OF = {torch.float32: torch.int32, torch.float64: torch.int64}
 
-#: threads of a block of the standalone select kernels (a multiple of 32, at most 1024)
+#: threads of a block of the block-a-row select kernels (a multiple of 32, at most 1024)
 THREADS = 256
+#: warps of a block of the warp-a-row select kernels (``kWarpsPerBlock`` of ``csrc/warp_select.cuh``)
+WARPS = 4
 RADIX_BITS = 8  #: ``kRadixBits`` of ``csrc/select.cuh``
+WARP_MAX_KEYS = 64  #: ``kWarpMaxKeys`` of ``csrc/warp_select.cuh``: keys a lane holds
+WARP_MAX_WIDTH = 32 * WARP_MAX_KEYS  #: widest row of the warp kernels (``kWarpMaxWidth``)
+WARP_STAGE = WARP_MAX_WIDTH + 4  #: floats of a warp's row stage (``kWarpStage``)
+WARP_COPIES = 4  #: ``kCopies``: copies of the first pass's histogram
 
 
 def float_key(x: torch.Tensor) -> torch.Tensor:
@@ -80,22 +96,43 @@ def _check_cuda_f32(x: torch.Tensor, name: str) -> torch.Tensor:
     return x.contiguous()
 
 
+def select_variant(width: int) -> str:
+    """Which kernel variant a row of ``width`` values takes: ``"warp"`` up to :data:`WARP_MAX_WIDTH`, else ``"block"``.
+
+    This is dispatch on shape: both variants are hand-written kernels with
+    the same results; a row that fits a warp's registers (64 keys a lane)
+    takes the warp kernel, a wider one the block-a-row kernel.
+    """
+    return "warp" if width <= WARP_MAX_WIDTH else "block"
+
+
+def _count(fn, variant: str) -> None:
+    fn.launches += 1
+    fn.launches_by_variant[variant] += 1
+
+
 def row_median_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Exact per-row median of a 2-D f32 CUDA tensor (kernel ``row_median.cu``)."""
+    """Exact per-row median of a 2-D f32 CUDA tensor (kernels of ``row_median.cu``)."""
     x = _check_cuda_f32(x, "row_median_cuda")
     n, w = x.shape
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0 or w == 0:
         return out.zero_()
     lib = _build.library()
+    variant = select_variant(w)
     with torch.cuda.device(x.device):
-        err = lib.row_median_launch(x.data_ptr(), out.data_ptr(), n, w, THREADS, _build.current_stream(x.device))
-    _build.check(err, "row_median")
-    row_median_cuda.launches += 1
+        stream = _build.current_stream(x.device)
+        if variant == "warp":
+            err = lib.row_median_warp_launch(x.data_ptr(), out.data_ptr(), n, w, stream)
+        else:
+            err = lib.row_median_launch(x.data_ptr(), out.data_ptr(), n, w, THREADS, stream)
+    _build.check(err, f"row_median ({variant})")
+    _count(row_median_cuda, variant)
     return out
 
 
 row_median_cuda.launches = 0
+row_median_cuda.launches_by_variant = {"warp": 0, "block": 0}
 
 
 def row_median(x: torch.Tensor) -> torch.Tensor:
@@ -109,13 +146,27 @@ def row_median(x: torch.Tensor) -> torch.Tensor:
 
 
 def _weights(weights, w: int, device) -> tuple[torch.Tensor, int]:
-    """``(int64 weights on device, total)``; raises on a bad shape or a negative weight."""
-    wts = torch.as_tensor(weights).to(device=device, dtype=torch.int64)
+    """``(int64 weights on device, total)``; raises on a bad shape or a negative weight.
+
+    Weights given on the host are checked there, before their one upload;
+    weights on a device are checked there, the sign test and the total read
+    back in one wait.
+    """
+    device = torch.device(device)
+    on_device = isinstance(weights, torch.Tensor) and weights.device.type != "cpu"
+    wts = weights.to(device=device, dtype=torch.int64) if on_device else torch.as_tensor(weights).to(torch.int64)
     if tuple(wts.shape) != (w,):
         raise ValueError(f"weights must have shape ({w},), got {tuple(wts.shape)}")
-    if bool((wts < 0).any()):
+    if on_device:
+        negative, total = torch.stack([(wts < 0).any().to(torch.int64), wts.sum()]).tolist()
+    else:
+        negative, total = bool((wts < 0).any()), int(wts.sum())
+    if negative:
         raise ValueError("weights must be >= 0")
-    return wts, int(wts.sum())
+    if on_device or device.type == "cpu":
+        return wts, total
+    # from pinned memory: the copy queues without waiting for the device
+    return wts.pin_memory().to(device, non_blocking=True), total
 
 
 def row_median_weighted_plain(x: torch.Tensor, weights) -> torch.Tensor:
@@ -193,7 +244,7 @@ def row_kth_smallest_plain(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def row_kth_smallest_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact per-row k-th smallest of a 2-D f32 CUDA tensor (kernel ``row_select.cu``)."""
+    """Exact per-row k-th smallest of a 2-D f32 CUDA tensor (kernels of ``row_select.cu``)."""
     x = _check_cuda_f32(x, "row_kth_smallest_cuda")
     n, w = x.shape
     k = _check_k(k, w)
@@ -201,16 +252,20 @@ def row_kth_smallest_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
     if n == 0:
         return out
     lib = _build.library()
+    variant = select_variant(w)  # as for the median: the warp kernel up to WARP_MAX_WIDTH values
     with torch.cuda.device(x.device):
-        err = lib.row_kth_smallest_launch(
-            x.data_ptr(), out.data_ptr(), n, w, k, THREADS, _build.current_stream(x.device)
-        )
-    _build.check(err, "row_kth_smallest")
-    row_kth_smallest_cuda.launches += 1
+        stream = _build.current_stream(x.device)
+        if variant == "warp":
+            err = lib.row_kth_smallest_warp_launch(x.data_ptr(), out.data_ptr(), n, w, k, stream)
+        else:
+            err = lib.row_kth_smallest_launch(x.data_ptr(), out.data_ptr(), n, w, k, THREADS, stream)
+    _build.check(err, f"row_kth_smallest ({variant})")
+    _count(row_kth_smallest_cuda, variant)
     return out
 
 
 row_kth_smallest_cuda.launches = 0
+row_kth_smallest_cuda.launches_by_variant = {"warp": 0, "block": 0}
 
 
 def row_kth_smallest(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -279,5 +334,103 @@ def radix_select_emulated(x: np.ndarray, weights, rank_lo: int, rank_hi: int) ->
     out = []
     for name in ("lo", "hi"):
         s = (pre[name] ^ np.uint32(0x80000000)).view(np.int32)
+        out.append((s ^ (0x7FFFFFFF & (s >> 31))).view(np.float32))
+    return out[0], out[1]
+
+
+def row_stage_split(offset: int, width: int) -> tuple[int, int, int]:
+    """``csrc/warp_select.cuh::row_stage_split``: ``(m, head, body)`` for a row ``offset`` floats past a 16-byte boundary.
+
+    Values ``0 .. head`` and ``head + body .. width`` are loaded by lanes,
+    ``head .. head + body`` by one bulk copy of ``4 * body`` bytes (a multiple
+    of 16) from a 16-byte boundary; value ``i`` goes to ``stage[m + i]``.
+    """
+    m = offset & 3
+    head = min((4 - m) & 3, width)
+    return m, head, (width - head) & ~3
+
+
+def persistent_grid(rows: int, warps: int, sms: int, blocks_per_sm: int) -> int:
+    """``csrc/warp_select.cuh::launch_warp_rows``'s grid: the blocks that fit the card at once, no more than needed."""
+    return max(1, min(sms * blocks_per_sm, -(-rows // warps)))
+
+
+def warp_row_walk(grid: int, warps: int, rows: int) -> list[np.ndarray]:
+    """The rows each warp of ``csrc/warp_select.cuh::warp_select_rows`` selects, warp ``b * warps + w`` at index ``b * warps + w``."""
+    stride = grid * warps
+    return [np.arange(g, rows, stride) for g in range(stride)]
+
+
+def lane_slots(width: int) -> np.ndarray:
+    """Per lane of a warp, the slots that hold a value of a ``width``-value row (``mine`` of ``warp_select2``)."""
+    return (width - np.arange(32) + 31) >> 5
+
+
+def warp_select_emulated(x: np.ndarray, rank_lo: int, rank_hi: int) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/warp_select.cuh::warp_select2`` in numpy: per row the elements of ranks ``rank_lo`` and ``rank_hi``.
+
+    ``rank_hi`` is ``rank_lo`` (one rank) or ``rank_lo + 1`` (the two middles
+    of an even width).  ``x`` is (rows, w) float32 with ``w <=``
+    :data:`WARP_MAX_WIDTH`.  Lane ``l`` holds the keys of values ``j * 32 + l`` in
+    its slots ``j``; the slots of a lane from :func:`lane_slots` on hold
+    nothing and never count.  The first pass adds each key's top digit to copy
+    ``l % 4`` of a 256-bin histogram and the scan sums the copies.  The keys
+    of bins ``d_lo .. d_hi`` (one unsigned compare; no key lies between them)
+    go into a list in slot-then-lane order; passes 2-4 select ``rank_lo`` in
+    the list with one histogram.  ``rank_hi``'s key is then ``rank_lo``'s
+    again if more than ``rank_lo + 1`` keys of the row are at most it, else
+    the least listed key above it.  Returns the two (rows,) float32 arrays,
+    bit for bit the elements of the row.
+    """
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    rows, w = x.shape
+    if not 1 <= w <= WARP_MAX_WIDTH:
+        raise ValueError(f"a warp holds 1 to {WARP_MAX_WIDTH} values, got {w}")
+    if rank_hi not in (rank_lo, rank_lo + 1):
+        raise ValueError(f"rank_hi must be rank_lo or rank_lo + 1, got {rank_lo}, {rank_hi}")
+    bins = 1 << RADIX_BITS
+    top_shift = np.uint32(32 - RADIX_BITS)
+    i = x.view(np.int32)
+    flat = (i ^ (0x7FFFFFFF & (i >> 31))).view(np.uint32) ^ np.uint32(0x80000000)
+    # keys[row, j, lane] = key of value j * 32 + lane (0 where there is none)
+    keys = np.zeros((rows, WARP_MAX_WIDTH), np.uint32)
+    keys[:, :w] = flat
+    keys = keys.reshape(rows, WARP_MAX_KEYS, 32)
+    valid = np.arange(WARP_MAX_KEYS)[:, None] < lane_slots(w)[None, :]
+    r_, j_, l_ = np.nonzero(np.broadcast_to(valid, keys.shape))
+
+    # first pass: copy l % 4 of the histogram for lane l, summed by the scan
+    copies = np.zeros((rows, WARP_COPIES, bins), np.int64)
+    np.add.at(copies, (r_, l_ % WARP_COPIES, (keys[r_, j_, l_] >> top_shift).astype(np.int64)), 1)
+    first = copies.sum(axis=1)
+    d_lo, r_lo = _scan_bins(first, np.full(rows, rank_lo, np.int64))
+    d_hi, _ = _scan_bins(first, np.full(rows, rank_hi, np.int64))
+
+    # the list: the keys of bins d_lo .. d_hi (one unsigned compare, wrapping: all 256 bins give ~0)
+    base = d_lo.astype(np.uint32) << top_shift
+    last = ((d_hi - d_lo + 1).astype(np.uint32) << top_shift) - np.uint32(1)
+    listed = valid & ((keys - base[:, None, None]) <= last[:, None, None])
+    if listed.sum(axis=(1, 2)).max(initial=0) > WARP_MAX_WIDTH:
+        raise AssertionError("the list outgrew its shared memory")
+
+    # passes 2-4 over the list for rank_lo, one histogram
+    rows_of = np.broadcast_to(np.arange(rows)[:, None, None], keys.shape)
+    pre, k = base, r_lo
+    for p in range(1, 32 // RADIX_BITS):
+        shift = 32 - RADIX_BITS * (p + 1)
+        above = np.uint32((0xFFFFFFFF << (shift + RADIX_BITS)) & 0xFFFFFFFF)
+        add = listed & ((keys & above) == pre[:, None, None])
+        hist = np.zeros((rows, bins), np.int64)
+        np.add.at(hist, (rows_of[add], ((keys[add] >> np.uint32(shift)) & np.uint32(bins - 1)).astype(np.int64)), 1)
+        d, k = _scan_bins(hist, k)
+        pre = pre | (d.astype(np.uint32) << np.uint32(shift))
+    lo, hi = pre, pre
+    if rank_hi != rank_lo:
+        at_most = (listed & (keys <= pre[:, None, None])).sum(axis=(1, 2)) + rank_lo - r_lo
+        above_min = np.where(listed & (keys > pre[:, None, None]), keys, np.uint32(0xFFFFFFFF)).min(axis=(1, 2))
+        hi = np.where(at_most > rank_lo + 1, pre, above_min)
+    out = []
+    for key in (lo, hi):
+        s = (key ^ np.uint32(0x80000000)).view(np.int32)
         out.append((s ^ (0x7FFFFFFF & (s >> 31))).view(np.float32))
     return out[0], out[1]

@@ -6,9 +6,11 @@ The card's machine may have no profiler that reads a kernel's stalls, so this
 script answers "what does this part cost" by removal: it copies ``csrc/`` to a
 temporary directory, replaces one statement of a kernel by a cheap stand-in
 (the median by the first window, the window sums by a copy, the reference
-loads by arithmetic on the value, the expansion's stores by nothing), builds
-the copy, and times it at 16,384 rows of the benchmark genome beside the
-unchanged sources.  The variants' results are wrong on purpose and are never
+loads by arithmetic on the value, the expansion's stores by nothing, the
+warp select's later passes or the whole select by nothing, the warps a
+block of the warp select by another count), builds the copy,
+and times it at 16,384 rows of the benchmark genome beside the unchanged
+sources (``warp_*`` variants: K2 at 1,793 and 1,794 columns, K5 at 1,793).  The variants' results are wrong on purpose and are never
 checked; only their times are read.  Prints one JSON line per variant; needs a
 CUDA device.  A stand-in that no longer matches its source line raises, so an
 edited kernel cannot be timed under an old name.
@@ -52,6 +54,24 @@ VARIANTS = {
     "k3_no_expand": {"gene_project.cu": [("for (int i = tid; i < n4; i += threads) {",
                                           "for (int i = tid; i < (n4 >> 10); i += threads) {")]},
     "k3_plain_store": {"gene_project.cu": [("__stcs(o4 + i, v);", "o4[i] = v;")]},
+    "warp_base": {},
+    # what the first pass's atomics cost: plain stores in their place
+    "warp_pass1_stores": {"warp_select.cuh": [(
+        "if (j < mine) atomicAdd(copy + (keys[j] >> (32 - kRadixBits)), 1);",
+        "if (j < mine) copy[keys[j] >> (32 - kRadixBits)] = 1;")]},
+    # an even width without the upper middle's step (the lower middle twice)
+    "warp_no_upper_step": {"warp_select.cuh": [(
+        "*key_hi = at_most > rank_lo + 1 ? pre : above_min;", "*key_hi = pre;")]},
+    # 2 or 8 copies of the first pass's histogram (16 or 4 lanes a copy) instead of 4
+    "warp_2_copies": {"warp_select.cuh": [("constexpr int kCopies = 4;", "constexpr int kCopies = 2;")]},
+    "warp_8_copies": {"warp_select.cuh": [("constexpr int kCopies = 4;", "constexpr int kCopies = 8;")]},
+    # only the loads: the keys' exclusive or stands in for the select
+    "warp_loads_only": {"warp_select.cuh": [(
+        "warp_select2<kKeys, kTwo>(keys, width, k, scratch, &lo, &hi);",
+        "lo = 0; for (int j = 0; j < kKeys; ++j) lo ^= keys[j]; hi = lo;")]},
+    # other warps a block than the 4 of the source (12 is the most an SM's shared memory holds)
+    **{f"warp_{n}_warps": {"warp_select.cuh": [("constexpr int kWarpsPerBlock = 4;",
+                                                 f"constexpr int kWarpsPerBlock = {n};")]} for n in (1, 2, 8, 12)},
 }
 
 
@@ -95,12 +115,25 @@ def main(argv=None) -> int:
     ref2 = torch.from_numpy(np.stack([ref.min(0), ref.max(0)])).to(dev)
     xw = torch.from_numpy(rng.standard_normal((ROWS, plan.n_windows), dtype=np.float32)).to(dev)
     thr = torch.from_numpy(rng.uniform(0, 1, ROWS).astype(np.float32)).to(dev)
+    out = torch.empty((ROWS,), dtype=torch.float32, device=dev)
+    xe = torch.from_numpy(rng.standard_normal((ROWS, plan.n_windows + 1), dtype=np.float32)).to(dev)
     keep = _build._LIB
     try:
         for name in names:
             with tempfile.TemporaryDirectory() as td:
                 _build._LIB = build_variant(VARIANTS[name], Path(td))
                 res = {"variant": name, "rows": ROWS}
+                if name.startswith("warp"):
+                    # through the C entry points: the kernel's time, not the wrapper's
+                    lib, stream, w = _build._LIB, _build.current_stream(dev), plan.n_windows
+                    res["row_median_ms"] = cuda_ms(lambda: lib.row_median_warp_launch(
+                        xw.data_ptr(), out.data_ptr(), ROWS, w, stream), 20)
+                    res["row_median_even_ms"] = cuda_ms(lambda: lib.row_median_warp_launch(
+                        xe.data_ptr(), out.data_ptr(), ROWS, w + 1, stream), 20)
+                    res["row_kth_smallest_ms"] = cuda_ms(lambda: lib.row_kth_smallest_warp_launch(
+                        xw.data_ptr(), out.data_ptr(), ROWS, w, w // 2, stream), 20)
+                    print(json.dumps(res), flush=True)
+                    continue
                 if not name.startswith("k3"):
                     res["fused_window_ms"] = cuda_ms(
                         lambda: fused.fused_center_smooth_median_cuda(x, ref2, plan, lfc_clip=3.0), 20)

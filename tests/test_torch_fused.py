@@ -177,6 +177,43 @@ def test_row_median_wide():
     _assert_median_equal(row_median(torch.from_numpy(x)).numpy(), np.median(x, axis=1).astype(np.float32))
 
 
+def _special_rows(width, seed=0):
+    """16 rows: continuous, ties, signed zeros, infinities, denormals."""
+    rng = np.random.default_rng(seed + width)
+    x = rng.normal(size=(16, width)).astype(np.float32)
+    x[1] = 0.75  # all equal
+    x[2] = np.where(x[2] > 0, np.float32(1.5), np.float32(-2.0))  # two values
+    x[3] = np.round(x[3] * 2) / 2  # ties across the middle
+    x[4] = np.where(x[4] > 0, np.float32(0.0), np.float32(-0.0))
+    x[5] = -0.0
+    x[6] = np.inf
+    x[7] = -np.inf
+    x[8, : width // 2] = -np.inf
+    x[9, (width + 1) // 2 :] = np.inf
+    x[10] *= np.float32(1e-42)  # denormals
+    x[11, ::2] = np.float32(1e-45)
+    x[12] = np.where(x[12] > 0, np.float32(1e-40), np.float32(-1e-40))
+    return x
+
+
+@pytest.mark.parametrize("width", [1, 2, 1793, 1794])
+def test_row_median_plain_matches_jax_row_median(width):
+    """The port's plain median against the JAX package's Pallas kernel (interpret mode on the CPU)."""
+    from infercnvpy_tpu.ops.pallas_select import row_median as jax_row_median
+
+    x = _special_rows(width)
+    got = row_median_plain(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax_row_median(x, row_tile=8))
+    _assert_median_equal(got, np.median(x, axis=1).astype(np.float32))
+    # XLA on the CPU flushes denormals in the even-width average (v1 + v2) / 2 to zero; numpy and the port do
+    # not.  The selected elements themselves agree, so only those rows differ, and only by the flush.
+    flushed = (want == 0) & (got != 0)
+    assert not flushed.any() if width % 2 else flushed.any()
+    assert (np.abs(got[flushed]) < np.finfo(np.float32).tiny).all()
+    npt.assert_array_equal(np.signbit(got[flushed]), np.signbit(want[flushed]))
+    _assert_median_equal(got[~flushed], want[~flushed])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("counts,window,step,n_ref", FUSED_CASES, ids=FUSED_IDS)
 def test_fused_kernel_matches_plain_on_gpu(cuda, counts, window, step, n_ref):
@@ -193,7 +230,7 @@ def test_fused_kernel_matches_plain_on_gpu(cuda, counts, window, step, n_ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 9), (16, 1793), (8, 1794), (8, 2), (3, 1), (16, 20000)])
+@pytest.mark.parametrize("shape", [(8, 9), (16, 1793), (8, 1794), (8, 2), (3, 1), (16, 20000), (8, 2048), (8, 2049)])
 def test_row_median_kernel_bit_identical_on_gpu(cuda, shape):
     x = torch.from_numpy(_median_input(shape)).to(cuda)
     got = row_median_cuda(x)
@@ -265,7 +302,8 @@ def _degenerate_rows(width):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [1, 2, 255, 256, 257, 1793, 1794, 2049, 5000])
+# both sides of the warp / block threshold (2,048)
+@pytest.mark.parametrize("width", [1, 2, 255, 256, 257, 1793, 1794, 2047, 2048, 2049, 5000, 20000])
 def test_select_kernels_degenerate_rows_on_gpu(cuda, width):
     from infercnvpy_tpu_torch.ops import select as ts
 
@@ -282,3 +320,22 @@ def test_select_kernels_degenerate_rows_on_gpu(cuda, width):
     torch.cuda.synchronize()
     for i, (got, want) in enumerate(pairs):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), f"select {i} at width {width}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,variant", [(1, "warp"), (1793, "warp"), (2048, "warp"), (2049, "block"),
+                                           (20000, "block")])
+def test_select_kernels_count_each_variant_on_gpu(cuda, width, variant):
+    from infercnvpy_tpu_torch.ops import select as ts
+
+    x = torch.from_numpy(_special_rows(width)).to(cuda)
+    for fn, call in ((ts.row_median_cuda, lambda: ts.row_median_cuda(x)),
+                     (ts.row_kth_smallest_cuda, lambda: ts.row_kth_smallest_cuda(x, width // 2))):
+        total, by = fn.launches, dict(fn.launches_by_variant)
+        call()
+        assert fn.launches == total + 1
+        assert fn.launches_by_variant == {**by, variant: by[variant] + 1}
+    want = row_median_plain(x)
+    got = ts.row_median_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -262,6 +262,38 @@ def test_row_median_weighted_edge_cases():
         row_median_weighted_cuda(x, np.ones(4, np.int32))
 
 
+@pytest.mark.parametrize("kind", ["list", "numpy_int32", "numpy_int64", "torch_int32"])
+def test_weights_are_checked_on_the_host(kind):
+    """One check for every kind of weight vector: the same int64 tensor, total and errors."""
+    from infercnvpy_tpu_torch.ops.select import _weights
+
+    def make(v):
+        return {"list": list(v), "numpy_int32": np.asarray(v, np.int32), "numpy_int64": np.asarray(v, np.int64),
+                "torch_int32": torch.tensor(v, dtype=torch.int32)}[kind]
+
+    wts, total = _weights(make([3, 0, 2, 1]), 4, torch.device("cpu"))
+    assert wts.dtype == torch.int64 and wts.device.type == "cpu" and total == 6
+    npt.assert_array_equal(wts.numpy(), [3, 0, 2, 1])
+    with pytest.raises(ValueError, match=r"weights must have shape \(4,\), got \(5,\)"):
+        _weights(make([1, 1, 1, 1, 1]), 4, torch.device("cpu"))
+    with pytest.raises(ValueError, match="weights must be >= 0"):
+        _weights(make([1, -1, 1, 1]), 4, torch.device("cpu"))
+
+
+@pytest.mark.cuda
+def test_device_weights_are_checked_on_the_device(cuda):
+    """Weights on the card: the same int64 tensor, total and errors as from the host, without leaving the card."""
+    from infercnvpy_tpu_torch.ops.select import _weights
+
+    wts, total = _weights(torch.tensor([3, 0, 2, 1], dtype=torch.int32, device=cuda), 4, cuda)
+    assert wts.dtype == torch.int64 and wts.is_cuda and total == 6
+    npt.assert_array_equal(wts.cpu().numpy(), [3, 0, 2, 1])
+    with pytest.raises(ValueError, match=r"weights must have shape \(4,\), got \(5,\)"):
+        _weights(torch.ones(5, dtype=torch.int32, device=cuda), 4, cuda)
+    with pytest.raises(ValueError, match="weights must be >= 0"):
+        _weights(torch.tensor([1, -1, 1, 1], device=cuda), 4, cuda)
+
+
 @pytest.mark.parametrize("k", [0, 16, 32])
 def test_row_kth_smallest_plain_matches_numpy_and_jax(k):
     from infercnvpy_tpu.ops.pallas_select import row_kth_smallest as jax_kth
@@ -320,9 +352,11 @@ def test_weighted_median_kernel_bit_identical_on_gpu(cuda, w, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [0, 16, 32])
-def test_kth_smallest_kernel_bit_identical_on_gpu(cuda, k):
-    x = torch.from_numpy(np.random.default_rng(1).normal(size=(64, 33)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("width", [33, 2048, 2049, 20000])  # the warp kernel up to 2,048 values, the block one above
+@pytest.mark.parametrize("at", ["first", "middle", "last"])
+def test_kth_smallest_kernel_bit_identical_on_gpu(cuda, width, at):
+    k = {"first": 0, "middle": width // 2, "last": width - 1}[at]
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(64, width)).astype(np.float32)).to(cuda)
     got = row_kth_smallest(x, k)
     want = row_kth_smallest_plain(x, k)
     torch.cuda.synchronize()

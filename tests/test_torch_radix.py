@@ -3,7 +3,10 @@
 The CUDA sources cannot run here, so their arithmetic is kept in Python beside
 them: ``ops.select.radix_select_emulated`` repeats the radix select of
 ``csrc/select.cuh`` (digits, histograms, bin scan, the two ranks of an even
-total, weights), ``ops.fused.window_tasks`` / ``stage_plan`` /
+total, weights), ``ops.select.warp_select_emulated`` / ``warp_row_walk`` /
+``persistent_grid`` / ``select_variant`` the warp-a-row select of
+``csrc/warp_select.cuh`` (lane layout, grouped adds, the rows of each warp,
+the width that picks it), ``ops.fused.window_tasks`` / ``stage_plan`` /
 ``staged_windows_emulated`` the task table, tiling and indexing of
 ``csrc/fused_window.cu``, and ``ops.gene.packed_gidx`` the index tables of
 ``csrc/gene_project.cu``.  Here they are held, bit for bit where the kernels
@@ -154,6 +157,152 @@ def test_radix_select_property(width, seed, levels, weighted):
     else:
         want = ts.row_median_plain(torch.from_numpy(x)).numpy()
         got = _median_emulated(x)
+    npt.assert_array_equal(_bits(got), _bits(want))
+
+
+# ----- the warp-a-row select of K2 / K5 --------------------------------------
+
+
+def _warp_median(x):
+    w = x.shape[1]
+    lo, hi = ts.warp_select_emulated(x, *ts.median_ranks(w))
+    with np.errstate(invalid="ignore"):  # -inf and +inf in the middle: NaN, as in the plain version
+        return hi if w % 2 else (lo + hi) / np.float32(2)
+
+
+def test_warp_constants_match_the_cuda_sources():
+    from infercnvpy_tpu_torch.ops import _build
+
+    warp = (_build.CSRC / "warp_select.cuh").read_text()
+    assert f"constexpr int kWarpMaxKeys = {ts.WARP_MAX_KEYS};" in warp
+    assert "constexpr int kWarpMaxWidth = 32 * kWarpMaxKeys;" in warp
+    assert "constexpr int kWarpStage = kWarpMaxWidth + 4;" in warp and ts.WARP_STAGE == ts.WARP_MAX_WIDTH + 4
+    assert f"constexpr int kRadixBits = {ts.RADIX_BITS};" in (_build.CSRC / "select.cuh").read_text()
+    for src in ("row_median.cu", "row_select.cu"):  # one instantiation of 64 keys a lane at every width
+        assert "warp_select_rows<kWarpMaxKeys," in (_build.CSRC / src).read_text()
+    assert f"constexpr int kWarpsPerBlock = {ts.WARPS};" in warp
+    assert f"constexpr int kCopies = {ts.WARP_COPIES};" in warp
+    assert ts.WARP_MAX_WIDTH == 2048 and 1 <= ts.WARPS <= 12
+
+
+@pytest.mark.parametrize("width,variant", [(1, "warp"), (512, "warp"), (513, "warp"), (1793, "warp"), (1794, "warp"),
+                                           (2048, "warp"), (2049, "block"), (5000, "block"), (20_000, "block")])
+def test_select_variant_threshold(width, variant):
+    assert ts.select_variant(width) == variant
+
+
+@pytest.mark.parametrize("width", list(range(1, 70)) + [511, 512, 513, 1792, 1793, 1794, 2047, 2048])
+def test_lane_slots_hold_each_value_once(width):
+    mine = ts.lane_slots(width)
+    held = np.concatenate([j * 32 + lane for lane, m in enumerate(mine) for j in [np.arange(m)]])
+    npt.assert_array_equal(np.sort(held), np.arange(width))
+    assert mine.max() <= ts.WARP_MAX_KEYS
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 5, 6, 7, 8, 31, 1793, 1794, 1795, 1796, 2047, 2048])
+def test_row_stage_covers_each_value_once(width):
+    """Rows of a row-major (rows, width) tensor start 0-3 floats past 16 bytes; the peel and the bulk copy cover each."""
+    for row in range(8):
+        offset = row * width  # floats from the tensor's start, which is 16-byte aligned
+        m, head, body = ts.row_stage_split(offset, width)
+        tail = width - head - body
+        assert 0 <= head <= 3 and 0 <= tail <= 3 and body % 4 == 0 and body >= 0
+        if body:  # the copy starts and ends on 16 bytes, in device memory and in the stage
+            assert (offset + head) % 4 == 0 and (offset + head + body) % 4 == 0 and (m + head) % 4 == 0
+        # lanes 0 .. head-1 load the head, lanes 4 .. 4+tail-1 the tail, the copy the body
+        by_lane = [lane for lane in range(head)] + [head + body + (lane - 4) for lane in range(4, 4 + tail)]
+        covered = np.concatenate([np.array(by_lane, np.int64), head + np.arange(body)])
+        npt.assert_array_equal(np.sort(covered), np.arange(width))
+        assert m + width <= ts.WARP_STAGE and m == offset % 4
+        # the stage read back by the lanes' slots is the row
+        row_vals = np.arange(width, dtype=np.float32) + 100 * row
+        stage = np.full(ts.WARP_STAGE, np.nan, np.float32)
+        stage[m + covered] = row_vals[covered]
+        got = stage[m + np.minimum(np.arange(ts.WARP_MAX_KEYS)[:, None] * 32 + np.arange(32)[None, :], width - 1)]
+        npt.assert_array_equal(got.reshape(-1)[:width], row_vals)
+
+
+@pytest.mark.parametrize("rows", [1, 133, 16_384])
+@pytest.mark.parametrize("warps", [1, 4, 12])
+def test_warp_row_walk_covers_every_row_once(rows, warps):
+    # the card's grid (132 SMs, 1-4 blocks an SM) and grids larger than the rows need
+    grids = {ts.persistent_grid(rows, warps, 132, per_sm) for per_sm in (1, 2, 4)} | {rows, rows + 7, 3 * rows}
+    for grid in sorted(grids):
+        walk = ts.warp_row_walk(grid, warps, rows)
+        assert len(walk) == grid * warps
+        seen = np.concatenate(walk)
+        npt.assert_array_equal(np.sort(seen), np.arange(rows))
+        assert max(len(r) for r in walk) == -(-rows // (grid * warps))
+
+
+@pytest.mark.parametrize("rows,warps,sms,per_sm,grid", [
+    (16_384, 8, 132, 2, 264), (16_384, 8, 132, 1, 132), (133, 8, 132, 2, 17), (1, 8, 132, 2, 1),
+    (16_384, 4, 132, 3, 396), (16_384, 12, 132, 1, 132), (0, 8, 132, 2, 1),
+])
+def test_persistent_grid(rows, warps, sms, per_sm, grid):
+    assert ts.persistent_grid(rows, warps, sms, per_sm) == grid
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 31, 32, 33, 255, 511, 512, 513, 1793, 1794, 2047, 2048])
+def test_warp_median_matches_key_sort(width):
+    rng = np.random.default_rng(width)
+    x = rng.normal(size=(12, width)).astype(np.float32)
+    x[0, :] = 0.25  # all equal: every lane of every key position on one slot
+    x[1, : width // 2] = -1.5
+    x[2] = np.round(x[2] * 4) / 4
+    x[3] *= np.float32(1e-42)  # denormals
+    x[4, ::2] = -0.0
+    x[5, : width // 3] = np.inf
+    x[6, : width // 2] = -np.inf  # the top digits 0 and 255: a span of all 256 bins at an even width
+    x[6, width // 2 :] = np.inf
+    want = _bits(ts.row_median_plain(torch.from_numpy(x)).numpy())
+    npt.assert_array_equal(_bits(_warp_median(x)), want)
+
+
+@pytest.mark.parametrize("cols", [6, 5, 4, 1])
+def test_warp_median_special_values(cols):
+    x = np.ascontiguousarray(SPECIAL[:, :cols])
+    want = ts.row_median_plain(torch.from_numpy(x)).numpy()
+    npt.assert_array_equal(_bits(_warp_median(x)), _bits(want))
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 896, 1791, 1792])
+def test_warp_kth_matches_key_sort(k):
+    x = np.random.default_rng(k).normal(size=(8, 1793)).astype(np.float32)
+    x[0] = np.round(x[0])
+    x[1] = 3.0
+    lo, hi = ts.warp_select_emulated(x, k, k)
+    want = _bits(ts.row_kth_smallest_plain(torch.from_numpy(x), k).numpy())
+    npt.assert_array_equal(_bits(hi), want)
+    npt.assert_array_equal(_bits(lo), want)
+
+
+def test_warp_select_refuses_a_row_wider_than_the_warp():
+    with pytest.raises(ValueError, match="a warp holds"):
+        ts.warp_select_emulated(np.zeros((1, ts.WARP_MAX_WIDTH + 1), np.float32), 0, 0)
+    with pytest.raises(ValueError, match="rank_lo or rank_lo"):
+        ts.warp_select_emulated(np.zeros((1, 8), np.float32), 2, 4)
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    width=st.integers(1, 600),
+    seed=st.integers(0, 2**31 - 1),
+    levels=st.sampled_from([0, 2, 16]),
+    kth=st.booleans(),
+)
+def test_warp_select_property(width, seed, levels, kth):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, width)).astype(np.float32)
+    if levels:
+        x = (np.round(x * levels) / levels).astype(np.float32)
+    if kth:
+        k = int(rng.integers(0, width))
+        got = ts.warp_select_emulated(x, k, k)[1]
+        want = ts.row_kth_smallest_plain(torch.from_numpy(x), k).numpy()
+    else:
+        got = _warp_median(x)
+        want = ts.row_median_plain(torch.from_numpy(x)).numpy()
     npt.assert_array_equal(_bits(got), _bits(want))
 
 
