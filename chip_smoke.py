@@ -47,11 +47,14 @@ Phases (any failure raises, so the script exits non-zero with no ``ok`` line):
               ungated, and on the synthetic genome; CUDA-event times; odd
               and even row counts at gene counts 0, 1, 2 and 3 modulo 4 (row
               starts off 16 bytes), ungated bit for bit
-7. selects  — the weighted median kernel at 16384 × 1991 (the bench plan's
-              genes per coverage group as weights, odd and even totals;
-              timed with the weights on the card and on the host) and the
-              k-th smallest kernel at 16384 × 1793 (warp variant, k = 0,
-              896, 1,792) and 16384 × 20,000 (block variant), bit for bit;
+7. selects  — the weighted median kernel at 16384 × 1991 (warp variant;
+              the bench plan's genes per coverage group as weights, all 10,
+              and seeded uneven weights 0-64 with ~10 % zeros, each with an
+              odd and an even total; the kernel through its C entry point,
+              and the wrapper with the weights on the card and on the host)
+              and at 16384 × 20,000 (block variant), both variants launched;
+              the k-th smallest kernel at 16384 × 1793 (warp variant, k = 0,
+              896, 1,792) and 16384 × 20,000 (block variant); bit for bit;
               times
 8. gene e2e — ``tl.infercnv(calculate_gene_values=True)`` on a 30,000 ×
               20,000 CSR: every batch through the gene kernel, ``X_cnv`` bit
@@ -356,7 +359,8 @@ def _select_edges() -> None:
 
     from infercnvpy_tpu_torch.ops import select as ts
 
-    before = {fn.__name__: dict(fn.launches_by_variant) for fn in (ts.row_median_cuda, ts.row_kth_smallest_cuda)}
+    selects = (ts.row_median_cuda, ts.row_kth_smallest_cuda, ts.row_median_weighted_cuda)
+    before = {fn.__name__: dict(fn.launches_by_variant) for fn in selects}
     # both sides of the warp / block threshold (2,048)
     for width in (1, 2, 257, 1793, 1794, 2048, 2049, 5000):
         x = np.random.default_rng(width).normal(size=(64, width)).astype(np.float32)
@@ -378,7 +382,7 @@ def _select_edges() -> None:
             w2[0] += (int(w2.sum()) + parity) % 2
             _bit_identical(ts.row_median_weighted_cuda(xd, w2), ts.row_median_weighted_plain(xd, w2),
                            f"K4 degenerate rows, width {width}, total {int(w2.sum())}")
-    for fn in (ts.row_median_cuda, ts.row_kth_smallest_cuda):
+    for fn in selects:
         ran = {v: fn.launches_by_variant[v] - n for v, n in before[fn.__name__].items()}
         if not ran["warp"] or not ran["block"]:
             raise AssertionError(f"{fn.__name__} on the degenerate rows ran the variants {ran}: both should have run")
@@ -1347,6 +1351,25 @@ def _bit_identical(got, want, what: str) -> None:
         raise AssertionError(f"{what}: {bad} rows differ from the plain version")
 
 
+def _k4_kernel(x, wts):
+    """A call of K4's kernel through its C entry point (no wrapper: the weights uploaded once), for timing."""
+    import torch
+
+    from infercnvpy_tpu_torch.ops import _build
+    from infercnvpy_tpu_torch.ops.select import THREADS, select_variant
+
+    rows, width = x.shape
+    wd = torch.from_numpy(np.asarray(wts, np.int32)).to(x.device)
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    total = int(np.sum(wts))
+    lib, stream = _build.library(), _build.current_stream(x.device)
+    if select_variant(width) == "warp":
+        return lambda: _build.check(lib.row_median_weighted_warp_launch(
+            x.data_ptr(), wd.data_ptr(), out.data_ptr(), rows, width, total, stream), "K4 (warp)")
+    return lambda: _build.check(lib.row_median_weighted_launch(
+        x.data_ptr(), wd.data_ptr(), out.data_ptr(), rows, width, total, THREADS, stream), "K4 (block)")
+
+
 def phase_select_kernels() -> list[dict]:
     import torch
 
@@ -1362,24 +1385,47 @@ def phase_select_kernels() -> list[dict]:
 
     gpd = gene_projection_data(build_window_plan(make_var(N_GENES), 100, 10))
     rng = np.random.default_rng(5)
+    k4_before = dict(row_median_weighted_cuda.launches_by_variant)
     x = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, gpd.n_groups), dtype=np.float32)).cuda()
     # eighths: many equal keys, so the even total's lower middle is often the same key
     ties = torch.round(x * 8) / 8
-    odd_w = gpd.g_counts.copy()
-    odd_w[0] += 1
+    # the bench plan's genes per coverage group (all 10: equal weights), and seeded uneven weights 0-64, ~10 % zeros
+    uneven = rng.integers(1, 65, size=gpd.n_groups)
+    uneven[rng.random(gpd.n_groups) < 0.1] = 0
     k4 = {}
-    for label, wts in (("even", gpd.g_counts), ("odd", odd_w)):
-        wd = torch.from_numpy(wts).cuda()
-        for vals in (x, ties):
-            _bit_identical(row_median_weighted_cuda(vals, wd), row_median_weighted_plain(vals, wd),
-                           f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), {label} total {int(wts.sum())}")
-        k4[label] = (int(wts.sum()), cuda_ms(lambda: row_median_weighted_cuda(x, wd)),
-                     cuda_ms(lambda: row_median_weighted_plain(x, wd)),
-                     cuda_ms(lambda: row_median_weighted_cuda(x, wts)))
-        log(f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), total {k4[label][0]}: bit-identical "
-            f"(continuous and tied values); kernel {k4[label][1]:.3f} ms with the weights on the card, "
-            f"{k4[label][3]:.3f} ms with them on the host, plain {k4[label][2]:.3f} ms")
+    for name, base in (("bench", gpd.g_counts), ("uneven", uneven)):
+        for parity in ("even", "odd"):
+            wts = np.asarray(base, np.int64).copy()
+            wts[np.flatnonzero(wts)[0]] += (int(wts.sum()) + (parity == "odd")) % 2
+            label = f"{name}_{parity}"
+            wd = torch.from_numpy(wts).cuda()
+            what = f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), {label} total {int(wts.sum())}"
+            for vals in (x, ties):
+                _bit_identical(row_median_weighted_cuda(vals, wd), row_median_weighted_plain(vals, wd), what)
+            k4[label] = {"total": int(wts.sum()), "ms": cuda_ms(_k4_kernel(x, wts)),
+                         "plain_ms": cuda_ms(lambda: row_median_weighted_plain(x, wd)),
+                         "wrapper_ms_card_weights": cuda_ms(lambda: row_median_weighted_cuda(x, wd)),
+                         "wrapper_ms_host_weights": cuda_ms(lambda: row_median_weighted_cuda(x, wts))}
+            t = k4[label]
+            log(f"K4 row_median_weighted ({KERNEL_ROWS}, {gpd.n_groups}), {select_variant(gpd.n_groups)} variant, "
+                f"{label} weights (total {t['total']}): bit-identical (continuous and tied values); kernel "
+                f"{t['ms']:.4f} ms; wrapper {t['wrapper_ms_card_weights']:.4f} ms with the weights on the card, "
+                f"{t['wrapper_ms_host_weights']:.4f} ms on the host; plain {t['plain_ms']:.3f} ms")
     del x, ties
+    xw = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, WIDE), dtype=np.float32)).cuda()
+    wide_w = rng.integers(1, 65, size=WIDE)
+    wide_w[rng.random(WIDE) < 0.1] = 0
+    wide_w[0] += int(wide_w.sum()) % 2
+    _bit_identical(row_median_weighted_cuda(xw, wide_w), row_median_weighted_plain(xw, wide_w),
+                   f"K4 row_median_weighted ({KERNEL_ROWS}, {WIDE}), total {int(wide_w.sum())}")
+    k4_wide = (cuda_ms(_k4_kernel(xw, wide_w)), cuda_ms(lambda: row_median_weighted_plain(xw, wide_w)))
+    log(f"K4 row_median_weighted ({KERNEL_ROWS}, {WIDE}), {select_variant(WIDE)} variant, uneven weights: "
+        f"bit-identical; kernel {k4_wide[0]:.3f} ms, plain {k4_wide[1]:.3f} ms")
+    del xw
+    k4_ran = {v: row_median_weighted_cuda.launches_by_variant[v] - n for v, n in k4_before.items()}
+    if not k4_ran["warp"] or not k4_ran["block"]:
+        raise AssertionError(f"K4's checks ran the variants {k4_ran}: both should have run")
+    log(f"K4 row_median_weighted launches by variant in its checks: {k4_ran}")
 
     w = 1793
     x = torch.from_numpy(rng.standard_normal((KERNEL_ROWS, w), dtype=np.float32)).cuda()
@@ -1412,10 +1458,13 @@ def phase_select_kernels() -> list[dict]:
         {
             "name": "row_median_weighted", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",
             "replaces": "infercnvpy_tpu/ops/pallas_select.py:154", "launches": None, "max_abs_err": 0.0,
-            "ms": k4["even"][1], "plain_ms": k4["even"][2], "ms_odd_total": k4["odd"][1],
-            "plain_ms_odd_total": k4["odd"][2], "ms_host_weights": k4["even"][3],
-            "ms_odd_total_host_weights": k4["odd"][3], "library_ms": None,
+            # the warp kernel through its C entry point, the bench plan's weights, even total
+            "ms": k4["bench_even"]["ms"], "plain_ms": k4["bench_even"]["plain_ms"], "library_ms": None,
+            "by_weights": k4, "variant": select_variant(gpd.n_groups),
+            "launches_by_variant": {"warp": None, "block": None}, "checked_launches_by_variant": k4_ran,
             **bound(KERNEL_ROWS * (gpd.n_groups + 1) * 4 + gpd.n_groups * 4, KERNEL_ROWS * gpd.n_groups * 4 * 2),
+            "wide": {"width": WIDE, "variant": select_variant(WIDE), "ms": k4_wide[0], "plain_ms": k4_wide[1],
+                     "library_ms": None, **bound(KERNEL_ROWS * (WIDE + 1) * 4 + WIDE * 4, KERNEL_ROWS * WIDE * 4 * 2)},
         },
         {
             "name": "row_kth_smallest", "route": "cuda", "source": "infercnvpy_tpu_torch/csrc/row_select.cu",

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "fused_window_smem_budget": (_I,),
     # x, wts, out, rows, width, total, threads, stream
     "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, wts, out, rows, width, total, stream
+    "row_median_weighted_warp_launch": (_P, _P, _P, _I, _I, _I, _P),
     # x, out, rows, width, k, threads, stream
     "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _I, _P),
     # x, out, rows, width, k, stream

@@ -3,10 +3,11 @@
     python -m infercnvpy_tpu_torch.ops.compare --parent DIR [--sweep] [--smoke N] [--e2e [CASE ...]] [--no-kernels]
 
 ``DIR`` is the root of another checkout of the repository whose kernels have
-the C interface of :data:`PARENT_SIGNATURES` (commit 907b0c4's: K1, K3 and K6
-as in this tree, the select kernels one block a row), e.g.
+the C interface of :data:`PARENT_SIGNATURES` (commit 1453ff3's: K1, K3, K6
+and the K2 / K5 warp and block kernels as in this tree, the weighted median
+K4 one block a row at every width), e.g.
 
-    mkdir parent_tree && git archive 907b0c4 | tar -x -C parent_tree
+    mkdir parent_tree && git archive 1453ff3 | tar -x -C parent_tree
 
 Its ``csrc/`` is built into a second library in a temporary directory.  K1
 and K3, whose interface this tree keeps, run through this tree's wrappers
@@ -15,12 +16,18 @@ launched through ctypes with the parent's arguments.  At 16,384 rows of the
 benchmark genome (20,000 genes, window 100, step 10) each kernel is timed in
 the order parent, this tree, this tree, parent (CUDA events around ``--reps``
 launches in a row, median of 5 such runs after a warm-up): K1; K3 gated; K2
-at 1,793 and 1,794 columns; K5 at 1,793 columns, k = 0, 896 and 1,792; K4 at
-the plan's 1,991 groups with its weights, kernel against kernel.  This tree's
-result is held against the parent's (K2, K4, K5 and ungated K3 bit for bit;
-K1 at rtol 1e-5 / atol 1e-6).  K4's wrapper is also timed in turns: the
-parent's ``ops/select.py`` (loaded from ``DIR``, launching the parent's
-library) against this tree's, with the weights on the device and on the host.
+at 1,793 and 1,794 columns and K5 at 1,793 columns, k = 0, 896 and 1,792
+(warp kernel against warp kernel); K4 kernel against kernel at the plan's
+1,991 groups with its weights (all 10) and with seeded uneven weights (0-64,
+~10 % zeros), each with an even and an odd total, and with those weights
+doubled (a total past 16 bits: the 32-bit weight table) (this tree's warp
+kernel against the parent's block kernel), and at 20,000 columns (block
+against block).  This
+tree's result is held against the parent's (K2, K4, K5 and ungated K3 bit
+for bit; K1 at rtol 1e-5 / atol 1e-6).  K4's wrapper is also timed in turns
+at 1,991 groups: the parent's ``ops/select.py`` (loaded from ``DIR``,
+launching the parent's library) against this tree's, with the weights on the
+device and on the host.
 
 ``--sweep`` times this tree's block select kernels (K4, and K2 / K5 at 1,793
 columns) at 32 to 1,024 threads a block through their C entry points, then K3
@@ -55,16 +62,20 @@ import numpy as np
 
 ROWS = 16_384
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the C interface of ``ops/_build.py`` at commit 907b0c4
+#: the C interface of ``ops/_build.py`` at commit 1453ff3
 PARENT_SIGNATURES = {
     "fused_window_launch": (_P, _P, _P, _P, _P, _P, _P, *([_I] * 18), _F, _F, _P),
     # x, out, rows, width, threads, stream
     "row_median_launch": (_P, _P, _I, _I, _I, _P),
+    # x, out, rows, width, stream
+    "row_median_warp_launch": (_P, _P, _I, _I, _P),
     "fused_window_smem_budget": (_I,),
     # x, wts, out, rows, width, total, threads, stream
     "row_median_weighted_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, rows, width, k, threads, stream
     "row_kth_smallest_launch": (_P, _P, _I, _I, _I, _I, _P),
+    # x, out, rows, width, k, stream
+    "row_kth_smallest_warp_launch": (_P, _P, _I, _I, _I, _P),
     "gene_project_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "gene_project_max_smem": (),
     "write_probe_launch": (_P, _P, _I, _I, _I, _I, _P),
@@ -291,8 +302,8 @@ def compare_kernels(plib: ctypes.CDLL, psel, reps: int) -> None:
     _turns("gene_project", k3_parent, k3, reps)
     del xw
 
-    # K2 at 1,793 and 1,794, K5 at 1,793: kernel against kernel through the C entry points, then this
-    # tree's wrapper (CUDA events, and the host's time to enqueue a call)
+    # K2 at 1,793 and 1,794, K5 at 1,793: warp kernel against warp kernel through the C entry points, then
+    # this tree's wrapper (CUDA events, and the host's time to enqueue a call)
     lib = library()
     m_out = torch.empty((ROWS,), dtype=torch.float32, device=dev)
     c_out = torch.empty_like(m_out)
@@ -300,8 +311,7 @@ def compare_kernels(plib: ctypes.CDLL, psel, reps: int) -> None:
         xm = torch.from_numpy(rng.standard_normal((ROWS, w), dtype=np.float32)).to(dev)
 
         def k2_parent():
-            _checked(plib.row_median_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, PARENT_THREADS, stream()),
-                     "parent K2")
+            _checked(plib.row_median_warp_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, stream()), "parent K2")
 
         def k2_change():
             _checked(lib.row_median_warp_launch(xm.data_ptr(), c_out.data_ptr(), ROWS, w, stream()), "K2")
@@ -317,8 +327,8 @@ def compare_kernels(plib: ctypes.CDLL, psel, reps: int) -> None:
     xm = torch.from_numpy(rng.standard_normal((ROWS, w), dtype=np.float32)).to(dev)
     for k in (0, w // 2, w - 1):
         def k5_parent():
-            _checked(plib.row_kth_smallest_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, k, PARENT_THREADS,
-                                                  stream()), "parent K5")
+            _checked(plib.row_kth_smallest_warp_launch(xm.data_ptr(), m_out.data_ptr(), ROWS, w, k, stream()),
+                     "parent K5")
 
         def k5_change():
             _checked(lib.row_kth_smallest_warp_launch(xm.data_ptr(), c_out.data_ptr(), ROWS, w, k, stream()), "K5")
@@ -331,28 +341,62 @@ def compare_kernels(plib: ctypes.CDLL, psel, reps: int) -> None:
                **_wrapper_times(lambda: select.row_kth_smallest_cuda(xm, k), reps))
     del xm
 
-    # K4: the kernel is unchanged; kernel against kernel, then the parent's wrapper against this tree's
-    xg = torch.from_numpy(rng.standard_normal((ROWS, gpd.n_groups), dtype=np.float32)).to(dev)
-    wts_host = gpd.g_counts.astype(np.int32)
-    wts = torch.from_numpy(wts_host).to(dev)
+    # K4: the parent's block kernel against this tree's kernel of the width's variant, then the wrappers
+    for name, width, base in k4_weight_cases(gpd, rng):
+        xg = torch.from_numpy(rng.standard_normal((ROWS, width), dtype=np.float32)).to(dev)
+        for parity in ("even", "odd") if name in ("bench", "uneven") and width == gpd.n_groups else ("even",):
+            wts_host = base.astype(np.int32)
+            wts_host[np.flatnonzero(wts_host)[0]] += (int(wts_host.sum()) + (parity == "odd")) % 2
+            wts = torch.from_numpy(wts_host).to(dev)
+            total = int(wts_host.sum())
+            variant = select.select_variant(width)
 
-    def k4_launch(which, out):
-        _checked(which.row_median_weighted_launch(
-            xg.data_ptr(), wts.data_ptr(), out.data_ptr(), ROWS, gpd.n_groups, gpd.total, PARENT_THREADS, stream()),
-            "K4")
+            def k4_parent():
+                _checked(plib.row_median_weighted_launch(xg.data_ptr(), wts.data_ptr(), m_out.data_ptr(), ROWS,
+                                                         width, total, PARENT_THREADS, stream()), "parent K4")
 
-    k4_launch(plib, m_out)
-    same(select.row_median_weighted_cuda(xg, wts_host), m_out, "K4")
-    same(select.row_median_weighted_cuda(xg, wts), m_out, "K4, weights on the device")
-    _turns("row_median_weighted", lambda: k4_launch(plib, m_out), lambda: k4_launch(lib, c_out), reps)
-    for where, weights in (("device", wts), ("host", wts_host)):
-        def k4_parent_wrapper():
-            with parent:
-                return psel.row_median_weighted_cuda(xg, weights)
+            def k4_change():
+                if variant == "warp":
+                    err = lib.row_median_weighted_warp_launch(xg.data_ptr(), wts.data_ptr(), c_out.data_ptr(), ROWS,
+                                                              width, total, stream())
+                else:
+                    err = lib.row_median_weighted_launch(xg.data_ptr(), wts.data_ptr(), c_out.data_ptr(), ROWS,
+                                                         width, total, select.THREADS, stream())
+                _checked(err, "K4")
 
-        same(k4_parent_wrapper(), m_out, f"parent K4 wrapper, weights on the {where}")
-        _turns("row_median_weighted_wrapper", k4_parent_wrapper,
-               lambda: select.row_median_weighted_cuda(xg, weights), reps, weights_on=where)
+            k4_parent()
+            k4_change()
+            same(c_out, m_out, f"K4 {name} {parity}")
+            same(select.row_median_weighted_cuda(xg, wts_host), m_out, f"K4 wrapper {name} {parity}")
+            same(select.row_median_weighted_cuda(xg, wts), m_out, f"K4 wrapper {name} {parity}, weights on the device")
+            bits = 16 if variant == "warp" and total <= select.WARP_NARROW_TOTAL else 32
+            case = dict(width=width, weights=name, total=total, variant=variant, weight_bits=bits)
+            _turns("row_median_weighted", k4_parent, k4_change, reps, **case)
+            if variant != "warp" or bits != 16:
+                continue
+            for where, weights in (("device", wts), ("host", wts_host)):
+                def k4_parent_wrapper():
+                    with parent:
+                        return psel.row_median_weighted_cuda(xg, weights)
+
+                same(k4_parent_wrapper(), m_out, f"parent K4 wrapper, weights on the {where}")
+                _turns("row_median_weighted_wrapper", k4_parent_wrapper,
+                       lambda: select.row_median_weighted_cuda(xg, weights), reps, **case, weights_on=where)
+        del xg
+
+
+def k4_weight_cases(gpd, rng) -> list:
+    """K4's timed inputs: ``(name, width, weights)``: the bench plan's genes per group (all 10) and seeded uneven
+    weights 0-64 with ~10 % zeros at its 1,991 groups (totals within 16 bits), those uneven weights doubled (a
+    total past 16 bits: the warp kernel's 32-bit weight table), and uneven weights at 20,000 columns (the block
+    variant)."""
+    cases = [("bench", gpd.n_groups, np.asarray(gpd.g_counts, np.int64))]
+    for width in (gpd.n_groups, 20_000):
+        uneven = rng.integers(1, 65, size=width)
+        uneven[rng.random(width) < 0.1] = 0
+        cases.append(("uneven", width, uneven))
+    cases.insert(2, ("uneven_doubled", gpd.n_groups, 2 * cases[1][2]))
+    return cases
 
 
 def sweep(reps: int) -> None:

@@ -12,17 +12,19 @@ lower bits flipped; -0 sorts just below +0).  The map is an involution.
 * the ``*_plain`` versions sort the keys (any device, f32 or f64);
 * the ``*_cuda`` versions launch ``csrc/row_median.cu`` and
   ``csrc/row_select.cu`` (f32, CUDA): a 4-pass radix select over the keys
-  with (weighted) 256-bin histograms.  The median and the k-th smallest have
-  two variants, chosen by width: up to :data:`WARP_MAX_WIDTH` values one warp
-  a row, the row staged by a bulk copy and its keys held in registers
-  (``csrc/warp_select.cuh``), above it one
-  block a row on the block select that the fused and gene kernels also run
-  (``csrc/select.cuh``), as the weighted median does at every width.  All
-  return results bit-identical to the plain versions on the same input;
+  with (weighted) 256-bin histograms.  Each select has two variants, chosen
+  by width: up to :data:`WARP_MAX_WIDTH` values one warp a row, the row
+  staged by a bulk copy and its keys held in registers, the weighted
+  median's weights in a table in shared memory (``csrc/warp_select.cuh``),
+  above it one block a row on
+  the block select that the fused and gene kernels also run
+  (``csrc/select.cuh``).  All return results bit-identical to the plain
+  versions on the same input;
 * :func:`radix_select_emulated` repeats the block routine's arithmetic
   (digits, histograms, bin scan, the two ranks of an even total) in numpy,
-  :func:`warp_select_emulated` the warp routine's (lane layout, histogram
-  copies, the list of the chosen bins, the upper middle), :func:`warp_row_walk`
+  :func:`warp_select_emulated` the warp routine's, weighted or not (lane
+  layout, histogram copies, the list of the chosen bins, the upper middle),
+  :func:`warp_row_walk`
   / :func:`persistent_grid` the rows each warp takes and
   :func:`row_stage_split` the staging of a row, so the CPU tests can hold them
   against the key-sort versions.
@@ -58,6 +60,9 @@ WARP_MAX_KEYS = 64  #: ``kWarpMaxKeys`` of ``csrc/warp_select.cuh``: keys a lane
 WARP_MAX_WIDTH = 32 * WARP_MAX_KEYS  #: widest row of the warp kernels (``kWarpMaxWidth``)
 WARP_STAGE = WARP_MAX_WIDTH + 4  #: floats of a warp's row stage (``kWarpStage``)
 WARP_COPIES = 4  #: ``kCopies``: copies of the first pass's histogram
+#: ``kListPairs``: (key, weight) pairs the weighted select's list holds (its scratch: the 4 copies' ints)
+WARP_LIST_PAIRS = (WARP_COPIES * ((1 << RADIX_BITS) + 4) - (1 << RADIX_BITS)) // 2
+WARP_NARROW_TOTAL = 0xFFFF  #: the largest weight total for which the weighted warp kernel's weight table is 16-bit
 
 
 def float_key(x: torch.Tensor) -> torch.Tensor:
@@ -198,7 +203,12 @@ def row_median_weighted_plain(x: torch.Tensor, weights) -> torch.Tensor:
 
 
 def row_median_weighted_cuda(x: torch.Tensor, weights) -> torch.Tensor:
-    """Exact per-row weighted median of a 2-D f32 CUDA tensor (kernel ``row_select.cu``)."""
+    """Exact per-row weighted median of a 2-D f32 CUDA tensor (kernels of ``row_select.cu``).
+
+    Up to :data:`WARP_MAX_WIDTH` columns the warp kernel (its weight table
+    16-bit where the total is at most :data:`WARP_NARROW_TOTAL`, else
+    32-bit), above it the block kernel.
+    """
     x = _check_cuda_f32(x, "row_median_weighted_cuda")
     n, w = x.shape
     wts, total = _weights(weights, w, x.device)
@@ -209,16 +219,21 @@ def row_median_weighted_cuda(x: torch.Tensor, weights) -> torch.Tensor:
         return out.zero_()
     wts = wts.to(torch.int32)
     lib = _build.library()
+    variant = select_variant(w)
     with torch.cuda.device(x.device):
-        err = lib.row_median_weighted_launch(
-            x.data_ptr(), wts.data_ptr(), out.data_ptr(), n, w, total, THREADS, _build.current_stream(x.device)
-        )
-    _build.check(err, "row_median_weighted")
-    row_median_weighted_cuda.launches += 1
+        stream = _build.current_stream(x.device)
+        if variant == "warp":
+            err = lib.row_median_weighted_warp_launch(x.data_ptr(), wts.data_ptr(), out.data_ptr(), n, w, total, stream)
+        else:
+            err = lib.row_median_weighted_launch(
+                x.data_ptr(), wts.data_ptr(), out.data_ptr(), n, w, total, THREADS, stream)
+    _build.check(err, f"row_median_weighted ({variant})")
+    _count(row_median_weighted_cuda, variant)
     return out
 
 
 row_median_weighted_cuda.launches = 0
+row_median_weighted_cuda.launches_by_variant = {"warp": 0, "block": 0}
 
 
 def row_median_weighted(x: torch.Tensor, weights) -> torch.Tensor:
@@ -366,21 +381,50 @@ def lane_slots(width: int) -> np.ndarray:
     return (width - np.arange(32) + 31) >> 5
 
 
-def warp_select_emulated(x: np.ndarray, rank_lo: int, rank_hi: int) -> tuple[np.ndarray, np.ndarray]:
-    """``csrc/warp_select.cuh::warp_select2`` in numpy: per row the elements of ranks ``rank_lo`` and ``rank_hi``.
+def _short_list_ranks(keys, wmat, listed, r_lo):
+    """``warp_wselect2``'s one-step rank of a list of at most 32 keys: ``(short, lo, hi)`` per row.
 
-    ``rank_hi`` is ``rank_lo`` (one rank) or ``rank_lo + 1`` (the two middles
-    of an even width).  ``x`` is (rows, w) float32 with ``w <=``
-    :data:`WARP_MAX_WIDTH`.  Lane ``l`` holds the keys of values ``j * 32 + l`` in
-    its slots ``j``; the slots of a lane from :func:`lane_slots` on hold
-    nothing and never count.  The first pass adds each key's top digit to copy
-    ``l % 4`` of a 256-bin histogram and the scan sums the copies.  The keys
-    of bins ``d_lo .. d_hi`` (one unsigned compare; no key lies between them)
-    go into a list in slot-then-lane order; passes 2-4 select ``rank_lo`` in
-    the list with one histogram.  ``rank_hi``'s key is then ``rank_lo``'s
-    again if more than ``rank_lo + 1`` keys of the row are at most it, else
-    the least listed key above it.  Returns the two (rows,) float32 arrays,
-    bit for bit the elements of the row.
+    Each listed key's sum is the weight of the listed keys at most it; the
+    lower key is the least whose sum exceeds ``r_lo``, the upper the least
+    whose sum exceeds ``r_lo + 1`` (a key of weight 0 never is: a key of
+    weight above 0 at most it has the same sum).
+    """
+    rows = keys.shape[0]
+    short = listed.sum(axis=(1, 2)) <= 32
+    lo = np.full(rows, 0xFFFFFFFF, np.uint32)
+    hi = lo.copy()
+    for r in np.flatnonzero(short):
+        k, w = keys[r][listed[r]], wmat[r][listed[r]]
+        at_most = (np.where(k[None, :] <= k[:, None], w[None, :], 0)).sum(axis=1)
+        lo[r] = np.where(at_most > r_lo[r], k, np.uint32(0xFFFFFFFF)).min(initial=0xFFFFFFFF)
+        hi[r] = np.where(at_most > r_lo[r] + 1, k, np.uint32(0xFFFFFFFF)).min(initial=0xFFFFFFFF)
+    return short, lo, hi
+
+
+def warp_select_emulated(x: np.ndarray, rank_lo: int, rank_hi: int, weights=None) -> tuple[np.ndarray, np.ndarray]:
+    """``csrc/warp_select.cuh::warp_select2`` (``warp_wselect2`` with ``weights``) in numpy.
+
+    Per row the elements of ranks ``rank_lo`` and ``rank_hi``: ``rank_hi`` is
+    ``rank_lo`` (one rank) or ``rank_lo + 1`` (the two middles of an even
+    total).  ``x`` is (rows, w) float32 with ``w <=`` :data:`WARP_MAX_WIDTH`;
+    ``weights`` is ``None`` (every value counts once) or (w,) non-negative
+    integers (value ``i`` counts ``weights[i]`` times, zero drops it).  Lane
+    ``l`` holds the keys of values ``j * 32 + l`` in its slots ``j``, each slot
+    with its weight; the slots of a lane from :func:`lane_slots` on weigh 0.
+    The first pass adds each slot's weight to copy ``l % 4`` of a 256-bin
+    histogram at its key's top digit, and the scan sums the copies.  The
+    row's keys in bins ``d_lo .. d_hi`` (one unsigned compare; no key of
+    weight above 0 lies between them) go into a list in slot-then-lane order
+    with their weights, 0 included.  A weighted list of at most 32 keys is
+    ranked in one step (:func:`_short_list_ranks`); a longer one, and every
+    unweighted list, goes through passes 2-4, which select ``rank_lo`` in the
+    list with one histogram (a weighted list of more than
+    :data:`WARP_LIST_PAIRS` keys does not fit its shared memory, and the
+    kernel runs those passes over the row read again: the same keys, the
+    same sums).  ``rank_hi``'s key is then ``rank_lo``'s again if the weight
+    of the row's keys at most it exceeds ``rank_lo + 1``, else the least
+    listed key of weight above 0 above it.  Returns the two (rows,) float32
+    arrays, bit for bit the elements of the row.
     """
     x = np.ascontiguousarray(x, dtype=np.float32)
     rows, w = x.shape
@@ -392,43 +436,57 @@ def warp_select_emulated(x: np.ndarray, rank_lo: int, rank_hi: int) -> tuple[np.
     top_shift = np.uint32(32 - RADIX_BITS)
     i = x.view(np.int32)
     flat = (i ^ (0x7FFFFFFF & (i >> 31))).view(np.uint32) ^ np.uint32(0x80000000)
-    # keys[row, j, lane] = key of value j * 32 + lane (0 where there is none)
+    # keys[row, j, lane] = key of value j * 32 + lane (0 where there is none), wt[j, lane] its weight
     keys = np.zeros((rows, WARP_MAX_WIDTH), np.uint32)
     keys[:, :w] = flat
     keys = keys.reshape(rows, WARP_MAX_KEYS, 32)
+    wt = np.zeros(WARP_MAX_WIDTH, np.int64)
+    wt[:w] = 1 if weights is None else np.asarray(weights, dtype=np.int64)
+    wt = wt.reshape(WARP_MAX_KEYS, 32)
     valid = np.arange(WARP_MAX_KEYS)[:, None] < lane_slots(w)[None, :]
-    r_, j_, l_ = np.nonzero(np.broadcast_to(valid, keys.shape))
+    assert not wt[~valid].any()  # a slot past the row weighs 0
+    live = np.broadcast_to(wt > 0, keys.shape)
+    r_, j_, l_ = np.nonzero(live)
 
     # first pass: copy l % 4 of the histogram for lane l, summed by the scan
     copies = np.zeros((rows, WARP_COPIES, bins), np.int64)
-    np.add.at(copies, (r_, l_ % WARP_COPIES, (keys[r_, j_, l_] >> top_shift).astype(np.int64)), 1)
+    np.add.at(copies, (r_, l_ % WARP_COPIES, (keys[r_, j_, l_] >> top_shift).astype(np.int64)), wt[j_, l_])
     first = copies.sum(axis=1)
     d_lo, r_lo = _scan_bins(first, np.full(rows, rank_lo, np.int64))
     d_hi, _ = _scan_bins(first, np.full(rows, rank_hi, np.int64))
 
-    # the list: the keys of bins d_lo .. d_hi (one unsigned compare, wrapping: all 256 bins give ~0)
+    # the list: the row's keys of bins d_lo .. d_hi (one unsigned compare, wrapping: all 256 bins give ~0)
     base = d_lo.astype(np.uint32) << top_shift
     last = ((d_hi - d_lo + 1).astype(np.uint32) << top_shift) - np.uint32(1)
     listed = valid & ((keys - base[:, None, None]) <= last[:, None, None])
-    if listed.sum(axis=(1, 2)).max(initial=0) > WARP_MAX_WIDTH:
+    if weights is None and listed.sum(axis=(1, 2)).max(initial=0) > WARP_MAX_WIDTH:
         raise AssertionError("the list outgrew its shared memory")
 
     # passes 2-4 over the list for rank_lo, one histogram
     rows_of = np.broadcast_to(np.arange(rows)[:, None, None], keys.shape)
+    wmat = np.broadcast_to(wt, keys.shape)
+    short = _short_list_ranks(keys, wmat, listed, r_lo) if weights is not None else None
     pre, k = base, r_lo
     for p in range(1, 32 // RADIX_BITS):
         shift = 32 - RADIX_BITS * (p + 1)
         above = np.uint32((0xFFFFFFFF << (shift + RADIX_BITS)) & 0xFFFFFFFF)
         add = listed & ((keys & above) == pre[:, None, None])
         hist = np.zeros((rows, bins), np.int64)
-        np.add.at(hist, (rows_of[add], ((keys[add] >> np.uint32(shift)) & np.uint32(bins - 1)).astype(np.int64)), 1)
+        digit = ((keys[add] >> np.uint32(shift)) & np.uint32(bins - 1)).astype(np.int64)
+        np.add.at(hist, (rows_of[add], digit), wmat[add])
         d, k = _scan_bins(hist, k)
         pre = pre | (d.astype(np.uint32) << np.uint32(shift))
     lo, hi = pre, pre
     if rank_hi != rank_lo:
-        at_most = (listed & (keys <= pre[:, None, None])).sum(axis=(1, 2)) + rank_lo - r_lo
-        above_min = np.where(listed & (keys > pre[:, None, None]), keys, np.uint32(0xFFFFFFFF)).min(axis=(1, 2))
+        at_most = np.where(listed & (keys <= pre[:, None, None]), wmat, 0).sum(axis=(1, 2)) + rank_lo - r_lo
+        above = listed & live & (keys > pre[:, None, None])
+        above_min = np.where(above, keys, np.uint32(0xFFFFFFFF)).min(axis=(1, 2))
         hi = np.where(at_most > rank_lo + 1, pre, above_min)
+    if short is not None:
+        # a weighted list of at most 32 keys is ranked in one step instead
+        is_short, short_lo, short_hi = short
+        lo = np.where(is_short, short_lo, lo)
+        hi = np.where(is_short, short_hi if rank_hi != rank_lo else short_lo, hi)
     out = []
     for key in (lo, hi):
         s = (key ^ np.uint32(0x80000000)).view(np.int32)

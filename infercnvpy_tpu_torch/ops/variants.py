@@ -8,9 +8,13 @@ temporary directory, replaces one statement of a kernel by a cheap stand-in
 (the median by the first window, the window sums by a copy, the reference
 loads by arithmetic on the value, the expansion's stores by nothing, the
 warp select's later passes or the whole select by nothing, the warps a
-block of the warp select by another count), builds the copy,
+block of the warp select by another count, parts of the weighted warp
+select), builds the copy,
 and times it at 16,384 rows of the benchmark genome beside the unchanged
-sources (``warp_*`` variants: K2 at 1,793 and 1,794 columns, K5 at 1,793).  The variants' results are wrong on purpose and are never
+sources (``warp_*`` variants: K2 at 1,793 and 1,794 columns, K5 at 1,793;
+``wsel_*`` variants: K4's warp kernel at the plan's 1,991 groups with its
+weights, all 10, and with seeded uneven weights 0-64, ~10 % zeros, each with
+an even and an odd total).  The variants' results are wrong on purpose and are never
 checked; only their times are read.  Prints one JSON line per variant; needs a
 CUDA device.  A stand-in that no longer matches its source line raises, so an
 edited kernel cannot be timed under an old name.
@@ -72,6 +76,32 @@ VARIANTS = {
     # other warps a block than the 4 of the source (12 is the most an SM's shared memory holds)
     **{f"warp_{n}_warps": {"warp_select.cuh": [("constexpr int kWarpsPerBlock = 4;",
                                                  f"constexpr int kWarpsPerBlock = {n};")]} for n in (1, 2, 8, 12)},
+    "wsel_base": {},
+    # the first pass adds 1 in place of each slot's weight (increments the hardware merges): what the turns of
+    # the lanes that meet on a bin cost
+    "wsel_pass1_ones": {"warp_select.cuh": [(
+        "if (w[i] > 0) atomicAdd(copy + (keys[j0 + i] >> (32 - kRadixBits)), w[i]);",
+        "if (w[i] > 0) atomicAdd(copy + (keys[j0 + i] >> (32 - kRadixBits)), 1);")]},
+    # the 32-bit weight table (8 KB a block, 3 blocks an SM) at every total
+    "wsel_32bit_table": {"row_select.cu": [("wide = total > 0xFFFF;", "wide = true;")]},
+    # K2 / K5's scratch a warp (a list of 1,024 pairs): 12 warps an SM in place of 16
+    "wsel_12_warps": {"warp_select.cuh": [("constexpr int kWScratch = kCopies * kCopyStride;",
+                                           "constexpr int kWScratch = kWarpScratch;")]},
+    # every list through passes 2-4: no one-step rank of a list of at most 32 keys
+    "wsel_no_short_list": {"warp_select.cuh": [("  if (count <= 32) {", "  if (count <= 0) {")]},
+    # no list: passes 2-4 and the upper middle over the row read again, as for a list that overflows
+    "wsel_no_list": {"warp_select.cuh": [
+        ("  if (count <= 32) {", "  if (count <= 0) {"),
+        ("const bool listed = count <= kListPairs;", "const bool listed = false;"),
+        ("if (keep && at < kListPairs) {", "if (keep && at < 0) {")]},
+    # the first pass and the list only: rank_lo's top digit, its lower 24 bits zero
+    "wsel_no_later_passes": {"warp_select.cuh": [
+        ("  if (count <= 32) {", "  if (count <= 0) {"),
+        ("for (int pass = 1; pass < kPasses; ++pass) {", "for (int pass = 1; pass < 1; ++pass) {")]},
+    # only the loads: the keys' exclusive or stands in for the weighted select
+    "wsel_loads_only": {"warp_select.cuh": [(
+        "warp_wselect2<kKeys, kTwo, W>(keys, wt, rank_lo, row, width, scratch, &lo, &hi);",
+        "lo = 0; for (int j = 0; j < kKeys; ++j) lo ^= keys[j]; hi = lo;")]},
 }
 
 
@@ -90,6 +120,27 @@ def build_variant(edits: dict, out: Path) -> ctypes.CDLL:
         (src / f.name).write_text(text)
     _build.compile_sources(sorted(src.glob("*.cu")), out / "lib.so")
     return _build.bind(ctypes.CDLL(str(out / "lib.so")))
+
+
+def _k4_times(lib, gpd, x, out) -> dict:
+    """K4's warp kernel through its C entry point: ms by weights (bench / uneven, the same for every variant) and
+    total (even / odd)."""
+    import torch
+
+    from . import _build
+    from .compare import cuda_ms, k4_weight_cases
+
+    res = {}
+    stream = _build.current_stream(x.device)
+    for name, width, base in k4_weight_cases(gpd, np.random.default_rng(7))[:2]:
+        for parity in ("even", "odd"):
+            wts = base.astype(np.int32)
+            wts[np.flatnonzero(wts)[0]] += (int(wts.sum()) + (parity == "odd")) % 2
+            wd = torch.from_numpy(wts).to(x.device)
+            total = int(wts.sum())
+            res[f"row_median_weighted_{name}_{parity}_ms"] = cuda_ms(lambda: lib.row_median_weighted_warp_launch(
+                x.data_ptr(), wd.data_ptr(), out.data_ptr(), ROWS, width, total, stream), 20)
+    return res
 
 
 def main(argv=None) -> int:
@@ -117,12 +168,17 @@ def main(argv=None) -> int:
     thr = torch.from_numpy(rng.uniform(0, 1, ROWS).astype(np.float32)).to(dev)
     out = torch.empty((ROWS,), dtype=torch.float32, device=dev)
     xe = torch.from_numpy(rng.standard_normal((ROWS, plan.n_windows + 1), dtype=np.float32)).to(dev)
+    xg = torch.from_numpy(rng.standard_normal((ROWS, gpd.n_groups), dtype=np.float32)).to(dev)
     keep = _build._LIB
     try:
         for name in names:
             with tempfile.TemporaryDirectory() as td:
                 _build._LIB = build_variant(VARIANTS[name], Path(td))
                 res = {"variant": name, "rows": ROWS}
+                if name.startswith("wsel"):
+                    res.update(_k4_times(_build._LIB, gpd, xg, out))
+                    print(json.dumps(res), flush=True)
+                    continue
                 if name.startswith("warp"):
                     # through the C entry points: the kernel's time, not the wrapper's
                     lib, stream, w = _build._LIB, _build.current_stream(dev), plan.n_windows

@@ -340,15 +340,50 @@ def test_gene_kernel_matches_plain_on_gpu(cuda, counts, window, step, gate):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _gpu_weight_cases(w, seed):
+    """Weights in [0, 7) (tests/test_pallas.py), the bench plan's equal 10s, uneven 0-64 with ~10 % zeros, one live
+    column, and one weight past 16 bits (a total past 16 bits: the 32-bit weight table); each with an even and an
+    odd total."""
+    rng = np.random.default_rng(seed)
+    _, pallas = _wmedian_case(w, seed)
+    uneven = rng.integers(1, 65, size=w)
+    uneven[rng.random(w) < 0.1] = 0
+    uneven[0] += 1
+    single = np.zeros(w, np.int64)
+    single[w // 2] = 7
+    big = rng.integers(0, 3, size=w)
+    big[w // 3] = 70_000
+    cases = {"pallas": pallas, "equal": np.full(w, 10), "uneven": uneven, "one_live": single, "past_16_bits": big}
+    out = {}
+    for name, wts in cases.items():
+        for parity in (0, 1):
+            w2 = np.asarray(wts, np.int64).copy()
+            w2[np.flatnonzero(w2)[0]] += (int(w2.sum()) + parity) % 2
+            out[f"{name}_{'odd' if parity else 'even'}"] = w2
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("w,seed", WMEDIAN_CASES)
+@pytest.mark.parametrize("w,seed", WMEDIAN_CASES + [(1991, 5), (2048, 6), (2049, 7), (20_000, 8)])
 def test_weighted_median_kernel_bit_identical_on_gpu(cuda, w, seed):
-    x, wts = _wmedian_case(w, seed, n=64)
+    """Warp kernel up to 2,048 columns, block kernel above: continuous, tied, all-equal and two-valued rows."""
+    x, _ = _wmedian_case(w, seed, n=64)
+    x[1] = np.round(x[1] * 8) / 8
+    x[2] = 0.25
+    x[3, : w // 2] = -1.5
+    x[4] = np.where(x[4] > 0, np.float32(1.5), np.float32(-0.0))
     xd = torch.from_numpy(x).to(cuda)
-    got = row_median_weighted(xd, wts)
-    want = row_median_weighted_plain(xd, wts)
-    torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    before = dict(row_median_weighted_cuda.launches_by_variant)
+    cases = _gpu_weight_cases(w, seed)
+    for name, wts in cases.items():
+        want = row_median_weighted_plain(xd, wts)
+        for where in ("host", "card"):
+            got = row_median_weighted(xd, wts if where == "host" else torch.from_numpy(wts).to(cuda))
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (name, where)
+    ran = {v: row_median_weighted_cuda.launches_by_variant[v] - n for v, n in before.items()}
+    variant = "warp" if w <= 2048 else "block"
+    assert ran == {variant: 2 * len(cases), ({"warp", "block"} - {variant}).pop(): 0}
 
 
 @pytest.mark.cuda

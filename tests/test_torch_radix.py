@@ -183,6 +183,13 @@ def test_warp_constants_match_the_cuda_sources():
     assert f"constexpr int kWarpsPerBlock = {ts.WARPS};" in warp
     assert f"constexpr int kCopies = {ts.WARP_COPIES};" in warp
     assert ts.WARP_MAX_WIDTH == 2048 and 1 <= ts.WARPS <= 12
+    # the weighted select: its list's (key, weight) pairs, the 16-bit weight table's limit, one instantiation of 64
+    # slots
+    assert "constexpr int kWScratch = kCopies * kCopyStride;" in warp
+    assert "constexpr int kListPairs = (kWScratch - kBins) / 2;" in warp and ts.WARP_LIST_PAIRS == 392
+    row_select = (_build.CSRC / "row_select.cu").read_text()
+    assert f"wide = total > {ts.WARP_NARROW_TOTAL:#X}".replace("0X", "0x") in row_select
+    assert ts.WARP_NARROW_TOTAL == 0xFFFF and "warp_weighted_median_rows<kWarpMaxKeys," in row_select
 
 
 @pytest.mark.parametrize("width,variant", [(1, "warp"), (512, "warp"), (513, "warp"), (1793, "warp"), (1794, "warp"),
@@ -304,6 +311,140 @@ def test_warp_select_property(width, seed, levels, kth):
         got = _warp_median(x)
         want = ts.row_median_plain(torch.from_numpy(x)).numpy()
     npt.assert_array_equal(_bits(got), _bits(want))
+
+
+# ----- the weighted warp-a-row select of K4 -----------------------------------
+
+
+def _warp_wmedian(x, wts):
+    total = int(np.sum(wts))
+    lo, hi = ts.warp_select_emulated(x, *ts.median_ranks(total), weights=wts)
+    with np.errstate(invalid="ignore"):  # -inf and +inf in the middle: NaN, as in the plain version
+        return hi if total % 2 else (lo + hi) / np.float32(2)
+
+
+def _jax_wmedian(x, wts):
+    """The JAX package's K4 in Pallas interpret mode, as tests/test_torch_gene.py runs it."""
+    from infercnvpy_tpu.ops.pallas_select import row_median_weighted as jax_wmedian
+
+    return np.asarray(jax_wmedian(x, np.asarray(wts, np.int32), row_tile=8))
+
+
+def _assert_wmedian(x, wts, jax=True):
+    """The warp routine bit for bit against the key sort, ``np.median(np.repeat(...))`` and (``jax``) the JAX kernel."""
+    got = _warp_wmedian(x, wts)
+    want = ts.row_median_weighted_plain(torch.from_numpy(x), wts).numpy()
+    npt.assert_array_equal(_bits(got), _bits(want))
+    npt.assert_array_equal(got, np.stack([np.median(np.repeat(r, wts)) for r in x]).astype(np.float32))
+    if jax:
+        npt.assert_array_equal(_bits(got), _bits(_jax_wmedian(x, wts)))
+
+
+def _wmedian_rows(width, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(8, width)).astype(np.float32)
+    x[0, :] = 0.25  # all equal: every chosen key in one bin (past the list's room at 2,048 columns)
+    x[1, : width // 2] = -1.5  # half the row one key: a duplicated middle
+    x[2] = np.round(x[2] * 4) / 4
+    x[3] = np.round(x[3] * 8) / 8  # the eighths of chip_smoke.py's tied rows
+    x[4, ::2] = -0.0
+    x[5] = np.where(x[5] > 0, np.float32(1.5), np.float32(-2.0))
+    return x
+
+
+def _warp_weight_cases(width, rng):
+    """Equal weights (the bench plan's 10), uneven 0-64 with ~10 % zeros, one live column, and past 16 bits."""
+    uneven = rng.integers(1, 65, size=width)
+    uneven[rng.random(width) < 0.1] = 0
+    uneven[rng.integers(0, width)] += 1
+    single = np.zeros(width, np.int64)
+    single[width // 3] = 5
+    big = rng.integers(0, 4, size=width)
+    big[rng.integers(0, width)] = 70_000
+    return {"equal": np.full(width, 10), "uneven": uneven, "one_live_column": single, "past_16_bits": big}
+
+
+@pytest.mark.parametrize("width", [1, 2, 33, 1991, 2047, 2048])
+@pytest.mark.parametrize("case", ["equal", "uneven", "one_live_column", "past_16_bits"])
+@pytest.mark.parametrize("total", ["even", "odd"])
+def test_warp_weighted_median_matches_key_sort_and_jax(width, case, total):
+    rng = np.random.default_rng(width * 31 + len(case))
+    wts = _warp_weight_cases(width, rng)[case].astype(np.int64)
+    if int(wts.sum()) % 2 != (total == "odd"):
+        wts[np.flatnonzero(wts)[0]] += 1
+    assert int(wts.sum()) % 2 == (total == "odd")
+    _assert_wmedian(_wmedian_rows(width, width), wts)
+
+
+@pytest.mark.parametrize("total", ["even", "odd"])
+def test_warp_weighted_median_duplicated_middle_key(total):
+    """An even total whose upper middle key is duplicated: the lower middle is that key again (and the reverse)."""
+    x = np.array([[1.0, 2.0, 2.0, 3.0, -0.0, 0.0], [5.0, 5.0, 5.0, -1.0, 7.0, 7.0], [2.0, 2.0, 2.0, 2.0, 1.0, 3.0]],
+                 np.float32)
+    wts = np.array([1, 2, 1, 1, 0, 1] if total == "even" else [1, 2, 1, 1, 0, 2])
+    _assert_wmedian(x, wts)
+
+
+@pytest.mark.parametrize("width", [2, 33, 1991, 2048])
+def test_warp_weighted_median_zero_weights_on_the_middle_keys(width):
+    """The columns that hold the unweighted middle ranks weigh 0: the median moves to their neighbours."""
+    x = np.random.default_rng(width).normal(size=(4, width)).astype(np.float32)
+    x[1] = np.round(x[1] * 4) / 4
+    x[2, :] = 0.5
+    x[2, : width // 2] = -0.5
+    for r in range(len(x)):
+        wts = np.random.default_rng(r).integers(1, 9, size=width)
+        order = np.argsort(x[r], kind="stable")
+        mid = order[max(width // 2 - 2, 0) : width // 2 + 2]
+        wts[mid] = 0
+        if not wts.any():
+            wts[order[-1]] = 1
+        for parity in (0, 1):
+            w2 = wts.copy()
+            w2[np.flatnonzero(w2)[0]] += (int(w2.sum()) + parity) % 2
+            _assert_wmedian(x[r : r + 1], w2)
+
+
+@pytest.mark.parametrize("cols", [6, 5, 4, 1])
+def test_warp_weighted_median_special_values(cols):
+    x = np.ascontiguousarray(SPECIAL[:, :cols])
+    for wts in ([2, 0, 1, 3, 0, 2], [1, 1, 1, 1, 1, 1], [0, 3, 0, 0, 1, 0], [70_000, 1, 2, 0, 5, 69_999]):
+        wts = np.asarray(wts[:cols])
+        if not wts.any():
+            continue
+        got = _warp_wmedian(x, wts)
+        npt.assert_array_equal(_bits(got), _bits(ts.row_median_weighted_plain(torch.from_numpy(x), wts).numpy()))
+
+
+def test_warp_weighted_list_room():
+    """The weighted list's (key, weight) pairs and histogram fit the first pass's copies; a row of one key chooses
+    every column, more than the list holds."""
+    assert 2 * ts.WARP_LIST_PAIRS + 256 <= ts.WARP_COPIES * (256 + 4)
+    x = np.full((1, ts.WARP_MAX_WIDTH), 3.0, np.float32)
+    wts = np.arange(ts.WARP_MAX_WIDTH) % 3
+    assert ts.WARP_MAX_WIDTH > ts.WARP_LIST_PAIRS
+    _assert_wmedian(x, wts, jax=False)
+    with pytest.raises(ValueError, match="rank beyond"):
+        ts.warp_select_emulated(x, 0, 1, weights=np.zeros(ts.WARP_MAX_WIDTH, np.int64))
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    width=st.integers(1, 2048),
+    seed=st.integers(0, 2**31 - 1),
+    levels=st.sampled_from([0, 2, 16]),
+    largest=st.sampled_from([1, 8, 64, 70_000]),
+    zeros=st.sampled_from([0.0, 0.1, 0.9]),
+)
+def test_warp_weighted_select_property(width, seed, levels, largest, zeros):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, width)).astype(np.float32)
+    if levels:
+        x = (np.round(x * levels) / levels).astype(np.float32)
+    wts = rng.integers(0, largest + 1, size=width)
+    wts[rng.random(width) < zeros] = 0
+    wts[rng.integers(0, width)] += 1
+    _assert_wmedian(x, wts, jax=False)
 
 
 # ----- the fused kernel's host tables ---------------------------------------
