@@ -23,6 +23,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import profiling
+
 __all__ = [
     "mask_nnz", "compact", "mask_vals_to_csr", "round_result_cap",
     "sharded_mask_nnz", "sharded_compact", "sharded_mask_vals_to_csr",
@@ -89,7 +91,9 @@ def sharded_mask_nnz(xs: list[torch.Tensor], n_valid: int) -> tuple[list[torch.T
     count is read, so the devices overlap.
     """
     parts = [_mask(x, _shard_local_valid(n_valid, s, x.shape[0])) for x, s in zip(xs, _shard_starts(xs))]
-    return [m for m, _ in parts], [int(k) for _, k in parts]
+    with profiling.span("infercnv.wait", on="compute"):  # the counts' readback waits for the devices
+        nnz = [int(k) for _, k in parts]
+    return [m for m, _ in parts], nnz
 
 
 def sharded_compact(xs: list[torch.Tensor], n_valid: int, cap: int) -> list[torch.Tensor]:

@@ -31,6 +31,7 @@ API and numerics contract follow the reference entry point
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -44,6 +45,7 @@ import pandas as pd
 import scipy.sparse as sp
 import torch
 
+from .. import profiling
 from .._util import _ensure_array, info, pick_devices, warn
 from ..genome.plan import build_window_plan
 from ..ops.gene import gene_projection_data
@@ -145,7 +147,15 @@ def infercnv(
     position, on excluded chromosomes, or covered by no window.
 
     With ``INFERCNVPY_TPU_TRACE_DIR`` set, each call is traced
-    (``profiling.maybe_trace``).
+    (``profiling.maybe_trace``) into a fresh directory: the device's kernels
+    and copies, and the call's stage spans on every thread, on one clock —
+    the root ``infercnv``, ``infercnv.reference``, ``infercnv.subset``,
+    ``infercnv.plan``, ``infercnv.setup`` / ``infercnv.slots``, per batch
+    ``infercnv.pack`` and ``infercnv.h2d`` (on the packer thread when
+    pipelined), ``infercnv.launch``, ``infercnv.d2h``, ``infercnv.csr`` and
+    the rest that ``profiling`` lists, ``infercnv.wait`` wherever a thread
+    blocks (its ``on``: ``"pack"``, ``"copies"`` or ``"compute"``), and the
+    counters ``pinned_bytes``, ``h2d_bytes`` and ``d2h_bytes``.
     """
     del n_jobs
     # validation: messages are observable API surface (reference tl/_infercnv.py:95-105)
@@ -158,28 +168,29 @@ def infercnv(
             "Genomic positions not found. There need to be `chromosome`, `start`, and `end` columns in `adata.var`. "
         )
     devices = pick_devices(device, "tl.infercnv")
+    with profiling.maybe_trace("infercnv"), profiling.span(
+        "infercnv", cells=adata.shape[0], genes=adata.shape[1], devices=len(devices)
+    ):
+        # gene selection: drop unannotated genes (warn) and excluded chromosomes
+        chrom = adata.var["chromosome"]
+        n_unannotated = int(chrom.isnull().sum())
+        if n_unannotated:
+            warn(f"Skipped {n_unannotated} genes because they don't have a genomic position annotated. ")
+        keep = chrom.notnull()
+        if exclude_chromosomes is not None:
+            keep &= ~chrom.isin(exclude_chromosomes)
+        keep = keep.values
 
-    # gene selection: drop unannotated genes (warn) and excluded chromosomes
-    chrom = adata.var["chromosome"]
-    n_unannotated = int(chrom.isnull().sum())
-    if n_unannotated:
-        warn(f"Skipped {n_unannotated} genes because they don't have a genomic position annotated. ")
-    keep = chrom.notnull()
-    if exclude_chromosomes is not None:
-        keep &= ~chrom.isin(exclude_chromosomes)
-    keep = keep.values
+        with profiling.span("infercnv.reference"):
+            reference = _get_reference(adata, reference_key, reference_cat, reference, layer)[:, keep]
 
-    reference = _get_reference(adata, reference_key, reference_cat, reference, layer)[:, keep]
+        with profiling.span("infercnv.subset"):
+            sub = adata[:, keep]
+            expr = sub.X if layer is None else sub.layers[layer]
+            if sp.issparse(expr):
+                expr = expr.tocsr()
+            var = sub.var.loc[:, ["chromosome", "start", "end"]]
 
-    sub = adata[:, keep]
-    expr = sub.X if layer is None else sub.layers[layer]
-    if sp.issparse(expr):
-        expr = expr.tocsr()
-    var = sub.var.loc[:, ["chromosome", "start", "end"]]
-
-    from ..profiling import maybe_trace
-
-    with maybe_trace("infercnv"):
         chr_pos, res, per_gene = _infercnv_compute(
             expr,
             var,
@@ -199,16 +210,16 @@ def infercnv(
             checkpoint_dir=checkpoint_dir,
             transfer_dtype=transfer_dtype,
         )
-    if calculate_gene_values:
-        per_gene = _reindex_genes(per_gene, adata.obs.index, var.index, adata.var_names)
-
-    if inplace:
-        adata.obsm[f"X_{key_added}"] = res
-        adata.uns[key_added] = {"chr_pos": chr_pos}
         if calculate_gene_values:
-            adata.layers[f"gene_values_{key_added}"] = per_gene
-        return None
-    return chr_pos, res, per_gene
+            per_gene = _reindex_genes(per_gene, adata.obs.index, var.index, adata.var_names)
+
+        if inplace:
+            adata.obsm[f"X_{key_added}"] = res
+            adata.uns[key_added] = {"chr_pos": chr_pos}
+            if calculate_gene_values:
+                adata.layers[f"gene_values_{key_added}"] = per_gene
+            return None
+        return chr_pos, res, per_gene
 
 
 def clear_transform_caches() -> None:
@@ -232,18 +243,37 @@ def clear_transform_caches() -> None:
     _sharded._BUILD_CACHE.clear()
 
 
+def _stage(name: str, stats: dict | None, key: str, devices=(), **attrs):
+    """The span ``name`` (``profiling.span``); with ``stats``, also the stage clock.
+
+    The clock synchronizes the CUDA ``devices`` at both ends of the stage and
+    adds its wall to ``stats[key]``, so a serialized run's stages are exact.
+    """
+    span = profiling.span(name, **attrs)
+    return span if stats is None else _clocked(span, stats, key, devices)
+
+
+@contextlib.contextmanager
+def _clocked(span, stats: dict, key: str, devices):
+    with span:
+        for d in devices:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        yield
+        for d in devices:
+            torch.cuda.synchronize(d)
+        stats[key] = stats.get(key, 0.0) + (time.perf_counter() - t0)
+
+
 def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, stats: dict | None = None) -> np.ndarray:
     """Masked-var-axis gene values -> all of ``var_names``, NaN for the genes left out.
 
     As the JAX package does it (``infercnvpy_tpu/tl/_infercnv.py:161-166``):
     through a pandas reindex.  ``stats`` receives ``gene_reindex_sec``.
     """
-    t0 = time.perf_counter()
-    df = pd.DataFrame(per_gene, index=obs_names, columns=masked_names)
-    out = df.reindex(columns=var_names, fill_value=np.nan).values
-    if stats is not None:
-        stats["gene_reindex_sec"] = stats.get("gene_reindex_sec", 0.0) + (time.perf_counter() - t0)
-    return out
+    with _stage("infercnv.gene_reindex", stats, "gene_reindex_sec"):
+        df = pd.DataFrame(per_gene, index=obs_names, columns=masked_names)
+        return df.reindex(columns=var_names, fill_value=np.nan).values
 
 
 def _pick_dtype(expr, dtype) -> torch.dtype:
@@ -423,13 +453,17 @@ class _Uploads:
         ]
         self.arrays = [{k: _np_view(t) for k, t in slot.items()} for slot in self.tensors]
         self.nbytes = sum(t.numel() * t.element_size() for t in self.tensors[0].values())
+        if self.cuda:
+            profiling.count("pinned_bytes", 2 * self.nbytes)
         self._copied = [[], []]
         self._streams = {str(d): torch.cuda.Stream(d) for d in devices} if self.cuda else {}
 
     def host(self, slot: int) -> dict:
         """numpy views of the slot's buffers, once the slot's previous copies have finished."""
-        for event in self._copied[slot]:
-            event.synchronize()
+        if self._copied[slot]:
+            with profiling.span("infercnv.wait", on="copies"):
+                for event in self._copied[slot]:
+                    event.synchronize()
         return self.arrays[slot]
 
     def to_device(self, slot: int) -> list:
@@ -484,6 +518,7 @@ class _Downloads:
         buf = self._buffers[slot].get(name)
         if buf is None or buf.numel() < n or buf.dtype != t.dtype:
             buf = self._buffers[slot][name] = torch.empty(n, dtype=t.dtype, pin_memory=True)
+            profiling.count("pinned_bytes", n * t.element_size())
         host = buf[:n].view(t.shape)
         host.copy_(t, non_blocking=True)
         return host
@@ -544,6 +579,10 @@ def _infercnv_compute(
     ``gene_scatter_sec`` (to the masked var axis).  Collecting it runs the
     batches one after another and synchronises the device between stages,
     so the stages are exact and their total bounds the pipelined wall time.
+    Each ``*_sec`` key times the stage spans of ``profiling`` that share its
+    stage (``infercnv.pack``, ``infercnv.h2d``, ``infercnv.launch``,
+    ``infercnv.d2h``, ``infercnv.csr`` with ``infercnv.checkpoint``, ...),
+    and each ``*_bytes`` key sums the counter of its name.
 
     ``checkpoint_dir`` and ``transfer_dtype`` as in :func:`infercnv`.
     """
@@ -552,88 +591,128 @@ def _infercnv_compute(
     n_cells, n_genes = expr.shape
     if n_cells == 0:
         raise ValueError("adata contains no cells — nothing to infer CNV from.")
-    plan = build_window_plan(var, window_size, step)
+    with profiling.span("infercnv.plan"):
+        plan = build_window_plan(var, window_size, step)
     if plan.n_windows == 0:
         raise ValueError("No usable chromosomes found (need `chr*` prefixed chromosome annotations).")
 
-    cdtype = _pick_dtype(expr, dtype)
-    np_cdtype = _np_dtype(cdtype)
-    tdt, tdt_name = _transfer_dtype(transfer_dtype)
-    num_chunks = max(1, -(-n_cells // chunksize))
-
-    if batch_cells is None:
-        # target ≈1.5 GB of dense input per batch, rounded to whole chunks
-        target = max(1, int(1.5e9 / max(1, n_genes * 4)))
-        batch_cells = max(chunksize, (target // chunksize) * chunksize)
-    else:
-        batch_cells = max(chunksize, (batch_cells // chunksize) * chunksize)
-    batch_cells = min(batch_cells, ((n_cells + chunksize - 1) // chunksize) * chunksize)
-    devices = list(device) if isinstance(device, (list, tuple)) else [device]
-    n_dev = len(devices)
-    sharded = n_dev > 1
-    # every batch ships this many rows, a multiple of the device count; the
-    # padding rows take the sentinel chunk id num_chunks
-    rows_padded = batch_cells if n_cells > batch_cells else n_cells
-    rows_padded += (-rows_padded) % n_dev
-    shards = shard_rows(rows_padded, n_dev)
-
-    use_sparse = device_densify is not False and sp.issparse(expr) and not sharded
-    if device_densify and sharded:
-        warn("device_densify is not supported on several devices; using the host packer")
-    use_result_pack = compress_results is True or (compress_results is None and dynamic_threshold is not None)
     timing = stats is not None
-    on_cuda = devices[0].type == "cuda"
-    _LAST_RUN_INFO.clear()
-    _LAST_RUN_INFO.update({"n_devices": n_dev, "sharded": sharded, "device_densify": use_sparse})
+    with profiling.span("infercnv.setup"):
+        cdtype = _pick_dtype(expr, dtype)
+        np_cdtype = _np_dtype(cdtype)
+        tdt, tdt_name = _transfer_dtype(transfer_dtype)
+        num_chunks = max(1, -(-n_cells // chunksize))
 
-    ckpt = None
-    if checkpoint_dir is not None:
-        fp = _ckpt_fingerprint(
-            expr, var, reference, n_cells, n_genes, window_size, step, lfc_clip, dynamic_threshold,
-            chunksize, calculate_gene_values, batch_cells, cdtype, tdt_name,
-        )
-        ckpt = _open_checkpoint(checkpoint_dir, fp, n_cells, batch_cells)
-    starts = list(range(0, n_cells, batch_cells))
-    resumed = {s for s in starts if ckpt is not None and _batch_file(ckpt, s).exists()}
-    compute_starts = [s for s in starts if s not in resumed]
-    slot_of = {s: i % 2 for i, s in enumerate(compute_starts)}
-    use_prefetch = not timing and len(compute_starts) > 1
+        if batch_cells is None:
+            # target ≈1.5 GB of dense input per batch, rounded to whole chunks
+            target = max(1, int(1.5e9 / max(1, n_genes * 4)))
+            batch_cells = max(chunksize, (target // chunksize) * chunksize)
+        else:
+            batch_cells = max(chunksize, (batch_cells // chunksize) * chunksize)
+        batch_cells = min(batch_cells, ((n_cells + chunksize - 1) // chunksize) * chunksize)
+        devices = list(device) if isinstance(device, (list, tuple)) else [device]
+        n_dev = len(devices)
+        sharded = n_dev > 1
+        # every batch ships this many rows, a multiple of the device count; the
+        # padding rows take the sentinel chunk id num_chunks
+        rows_padded = batch_cells if n_cells > batch_cells else n_cells
+        rows_padded += (-rows_padded) % n_dev
+        shards = shard_rows(rows_padded, n_dev)
 
-    def _sync():
-        if timing and on_cuda:
-            for d in devices:
-                torch.cuda.synchronize(d)
+        use_sparse = device_densify is not False and sp.issparse(expr) and not sharded
+        if device_densify and sharded:
+            warn("device_densify is not supported on several devices; using the host packer")
+        use_result_pack = compress_results is True or (compress_results is None and dynamic_threshold is not None)
+        on_cuda = devices[0].type == "cuda"
+        _LAST_RUN_INFO.clear()
+        _LAST_RUN_INFO.update({"n_devices": n_dev, "sharded": sharded, "device_densify": use_sparse})
 
-    def _tick():
-        _sync()
-        return time.perf_counter() if timing else 0.0
+        ckpt = None
+        if checkpoint_dir is not None:
+            fp = _ckpt_fingerprint(
+                expr, var, reference, n_cells, n_genes, window_size, step, lfc_clip, dynamic_threshold,
+                chunksize, calculate_gene_values, batch_cells, cdtype, tdt_name,
+            )
+            ckpt = _open_checkpoint(checkpoint_dir, fp, n_cells, batch_cells)
+        starts = list(range(0, n_cells, batch_cells))
+        resumed = {s for s in starts if ckpt is not None and _batch_file(ckpt, s).exists()}
+        compute_starts = [s for s in starts if s not in resumed]
+        slot_of = {s: i % 2 for i, s in enumerate(compute_starts)}
+        use_prefetch = not timing and len(compute_starts) > 1
+        clocked = devices if timing and on_cuda else ()
 
-    def _tock(key, t0):
         if timing:
-            _sync()
-            stats[key] = stats.get(key, 0.0) + (time.perf_counter() - t0)
+            stats["mode"] = "device_densify" if use_sparse else "host_pack"
+            stats["result_pack"] = use_result_pack
+            if tdt_name is not None:
+                stats["transfer_dtype"] = tdt_name
+            stats["compile_sec"] = 0.0
+            if compute_starts:
+                from .. import native
 
-    if timing:
-        stats["mode"] = "device_densify" if use_sparse else "host_pack"
-        stats["result_pack"] = use_result_pack
-        if tdt_name is not None:
-            stats["transfer_dtype"] = tdt_name
-        stats["compile_sec"] = 0.0
+                t0 = time.perf_counter()
+                native.library()
+                if on_cuda and cdtype == torch.float32:
+                    from ..ops import _build
+
+                    _build.library()
+                stats["compile_sec"] = time.perf_counter() - t0
+
+        gpd = gene_projection_data(plan) if calculate_gene_values else None
+        lut = _pack_lut(plan, n_genes)
+        width = packed_width(plan)
+        stage_dtype = tdt if tdt is not None else cdtype
+
         if compute_starts:
             from .. import native
+            from ..ops.result_pack import (
+                _shard_local_valid, mask_vals_to_csr, round_result_cap, sharded_compact, sharded_mask_nnz,
+                sharded_mask_vals_to_csr,
+            )
+            from ..ops.sparse_ingest import coo_from_csr_batch, col_index_dtype, densify, round_nnz_cap
 
-            t0 = time.perf_counter()
-            native.library()
-            if on_cuda and cdtype == torch.float32:
-                from ..ops import _build
+            # the transform is built only here: a run whose every batch resumes
+            # from the checkpoint builds and launches nothing.  It maps the
+            # shards' operands to the shards' results, as lists
+            fn_kw = dict(
+                n_ref_rows=reference.shape[0], lfc_clip=lfc_clip, dynamic_threshold=dynamic_threshold,
+                num_chunks=num_chunks, calculate_gene_values=calculate_gene_values, dtype=cdtype,
+            )
+            fn = sharded_infercnv_fn(plan, devices, **fn_kw)
 
-                _build.library()
-            stats["compile_sec"] = time.perf_counter() - t0
+            refs = replicate(torch.from_numpy(pack_columns(np.asarray(reference, dtype=np_cdtype), plan, lut)), devices)
 
-    gpd = gene_projection_data(plan) if calculate_gene_values else None
-    lut = _pack_lut(plan, n_genes)
-    width = packed_width(plan)
-    stage_dtype = tdt if tdt is not None else cdtype
+            specs = {"chunk": ((rows_padded,), torch.int64)}
+            if use_sparse:
+                # one nnz capacity for all batches of this run (the per-batch
+                # maximum, bucket-rounded), so every batch ships buffers of one size
+                ptr = expr.indptr
+                shared_cap = round_nnz_cap(max(int(ptr[min(s + batch_cells, n_cells)] - ptr[s]) for s in starts))
+                specs["cols"] = ((shared_cap,), _TORCH_INT[np.dtype(col_index_dtype(width))])
+                specs["vals"] = ((shared_cap,), stage_dtype)
+                specs["counts"] = ((rows_padded,), torch.int32)
+                # bfloat16 is written by the native remap itself; another transfer
+                # dtype is converted from the compute dtype after the remap
+                convert = stage_dtype not in (cdtype, torch.bfloat16)
+                scratch = np.empty(shared_cap, np_cdtype) if convert else None
+            else:
+                specs["x"] = ((rows_padded, width), stage_dtype)
+                convert = stage_dtype != cdtype
+                scratch = np.empty((rows_padded, width), np_cdtype) if convert else None
+            with profiling.span("infercnv.slots"):
+                uploads = _Uploads(devices, shards, specs)
+                downloads = _Downloads(devices)
+            chunk_base = np.arange(rows_padded, dtype=np.int64)
+
+    def stage(name: str, key: str, **attrs):
+        """The span ``name``; with ``stats``, timed into ``stats[key]`` (``_stage``)."""
+        return _stage(name, stats, key, clocked, **attrs)
+
+    def count(key: str, n: int) -> None:
+        """Add ``n`` to the counter ``key`` of the open span, and with ``stats`` to ``stats[key]``."""
+        profiling.count(key, n)
+        if timing:
+            stats[key] = stats.get(key, 0) + n
 
     t_run0 = time.perf_counter()
 
@@ -661,91 +740,52 @@ def _infercnv_compute(
     gene_parts = []
 
     def _load_batch(start):
-        with np.load(_batch_file(ckpt, start)) as z:
+        with profiling.span("infercnv.resume"), np.load(_batch_file(ckpt, start)) as z:
             res_parts.append(sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"])))
             if gpd is not None:
                 gene_parts.append(z["gene"])
 
     if compute_starts:
-        from .. import native
-        from ..ops.result_pack import (
-            _shard_local_valid, mask_vals_to_csr, round_result_cap, sharded_compact, sharded_mask_nnz,
-            sharded_mask_vals_to_csr,
-        )
-        from ..ops.sparse_ingest import coo_from_csr_batch, col_index_dtype, densify, round_nnz_cap
+        def _prepare(start, parent=None):
+            """Host half of one batch: pack into its slot, start the copy to the device.
 
-        # the transform is built only here: a run whose every batch resumes
-        # from the checkpoint builds and launches nothing.  It maps the
-        # shards' operands to the shards' results, as lists
-        fn_kw = dict(
-            n_ref_rows=reference.shape[0], lfc_clip=lfc_clip, dynamic_threshold=dynamic_threshold,
-            num_chunks=num_chunks, calculate_gene_values=calculate_gene_values, dtype=cdtype,
-        )
-        fn = sharded_infercnv_fn(plan, devices, **fn_kw)
-
-        refs = replicate(torch.from_numpy(pack_columns(np.asarray(reference, dtype=np_cdtype), plan, lut)), devices)
-
-        specs = {"chunk": ((rows_padded,), torch.int64)}
-        if use_sparse:
-            # one nnz capacity for all batches of this run (the per-batch
-            # maximum, bucket-rounded), so every batch ships buffers of one size
-            ptr = expr.indptr
-            shared_cap = round_nnz_cap(max(int(ptr[min(s + batch_cells, n_cells)] - ptr[s]) for s in starts))
-            specs["cols"] = ((shared_cap,), _TORCH_INT[np.dtype(col_index_dtype(width))])
-            specs["vals"] = ((shared_cap,), stage_dtype)
-            specs["counts"] = ((rows_padded,), torch.int32)
-            # bfloat16 is written by the native remap itself; another transfer
-            # dtype is converted from the compute dtype after the remap
-            convert = stage_dtype not in (cdtype, torch.bfloat16)
-            scratch = np.empty(shared_cap, np_cdtype) if convert else None
-        else:
-            specs["x"] = ((rows_padded, width), stage_dtype)
-            convert = stage_dtype != cdtype
-            scratch = np.empty((rows_padded, width), np_cdtype) if convert else None
-        uploads = _Uploads(devices, shards, specs)
-        downloads = _Downloads(devices)
-        chunk_base = np.arange(rows_padded, dtype=np.int64)
-
-        def _prepare(start):
-            """Host half of one batch: pack into its slot, start the copy to the device."""
+            ``parent`` is the span that handed the batch to the packer thread.
+            """
             slot = slot_of[start]
             stop = min(start + batch_cells, n_cells)
             rows = stop - start
-            t0 = _tick()
-            host = uploads.host(slot)
-            nnz = None
-            if use_sparse:
-                val_dtype = "bfloat16" if stage_dtype == torch.bfloat16 else np_cdtype
-                vals = scratch if convert else host["vals"]
-                _, _, _, nnz = coo_from_csr_batch(
-                    expr, lut, width, shared_cap, val_dtype, rows=(start, stop),
-                    out=(host["cols"], vals, host["counts"][:rows]),
-                )
-                host["counts"][rows:] = 0
-                key = "vals"
-            else:
-                block = scratch if convert else host["x"]
-                if sp.issparse(expr):
-                    pack_csr(expr, plan, lut, dtype=np_cdtype, rows=(start, stop), out=block[:rows])
+            with stage("infercnv.pack", "host_pack_sec", parent=parent):
+                host = uploads.host(slot)
+                nnz = None
+                if use_sparse:
+                    val_dtype = "bfloat16" if stage_dtype == torch.bfloat16 else np_cdtype
+                    vals = scratch if convert else host["vals"]
+                    _, _, _, nnz = coo_from_csr_batch(
+                        expr, lut, width, shared_cap, val_dtype, rows=(start, stop),
+                        out=(host["cols"], vals, host["counts"][:rows]),
+                    )
+                    host["counts"][rows:] = 0
+                    key = "vals"
                 else:
-                    raw = _ensure_array(np.asarray(expr[start:stop]))
-                    pack_columns(raw, plan, lut, dtype=np_cdtype, out=block[:rows])
-                block[rows:] = 0
-                key = "x"
-            if convert:
-                # round to the transfer dtype on the host (torch's
-                # round-to-nearest-even); the device upcasts again
-                uploads.tensors[slot][key].copy_(torch.from_numpy(scratch))
-            chunk = host["chunk"]
-            np.floor_divide(chunk_base + start, chunksize, out=chunk)
-            chunk[rows:] = num_chunks
-            _tock("host_pack_sec", t0)
+                    block = scratch if convert else host["x"]
+                    if sp.issparse(expr):
+                        pack_csr(expr, plan, lut, dtype=np_cdtype, rows=(start, stop), out=block[:rows])
+                    else:
+                        raw = _ensure_array(np.asarray(expr[start:stop]))
+                        pack_columns(raw, plan, lut, dtype=np_cdtype, out=block[:rows])
+                    block[rows:] = 0
+                    key = "x"
+                if convert:
+                    # round to the transfer dtype on the host (torch's
+                    # round-to-nearest-even); the device upcasts again
+                    uploads.tensors[slot][key].copy_(torch.from_numpy(scratch))
+                chunk = host["chunk"]
+                np.floor_divide(chunk_base + start, chunksize, out=chunk)
+                chunk[rows:] = num_chunks
 
-            t0 = _tick()
-            devs = uploads.to_device(slot)
-            if timing:
-                stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + uploads.nbytes
-            _tock("h2d_sec", t0)
+            with stage("infercnv.h2d", "h2d_sec", parent=parent):
+                devs = uploads.to_device(slot)
+                count("h2d_bytes", uploads.nbytes)
             return devs, rows, nnz
 
         # one capacity per matrix: the gene matrix's nnz must not size the window fetch
@@ -770,15 +810,14 @@ def _infercnv_compute(
             return packed or ("dense", [a[: _shard_local_valid(rows, lo, hi - lo)] for a, (lo, hi) in zip(arrs, shards)])
 
         def _compute(parts: list, rows: int, nnz):
-            t0 = _tick()
-            if use_sparse:
-                xs = [densify(p["cols"], p["vals"], p["counts"], nnz, width, cdtype) for p in parts]
-            else:
-                xs = [p["x"] for p in parts]
-            x_parts, g_parts = fn(xs, refs, [p["chunk"] for p in parts])
-            x_payload = _payload(x_parts, "x", rows)
-            g_payload = _payload(g_parts, "gene", rows) if gpd is not None else None
-            _tock("compute_sec", t0)
+            with stage("infercnv.launch", "compute_sec"):
+                if use_sparse:
+                    xs = [densify(p["cols"], p["vals"], p["counts"], nnz, width, cdtype) for p in parts]
+                else:
+                    xs = [p["x"] for p in parts]
+                x_parts, g_parts = fn(xs, refs, [p["chunk"] for p in parts])
+                x_payload = _payload(x_parts, "x", rows)
+                g_payload = _payload(g_parts, "gene", rows) if gpd is not None else None
             return x_payload, g_payload
 
         def _fetch(payload, slot: int, name: str, bytes_key: str):
@@ -787,9 +826,7 @@ def _infercnv_compute(
             arrays = {"mask": payload[1], "vals": payload[2]} if packed else {"dense": payload[1]}
             host = {k: [downloads.fetch(slot, f"{name}_{k}{i}", t) for i, t in enumerate(ts)]
                     for k, ts in arrays.items()}
-            if timing:
-                n_bytes = sum(t.numel() * t.element_size() for ts in arrays.values() for t in ts)
-                stats[bytes_key] = stats.get(bytes_key, 0) + n_bytes
+            count(bytes_key, sum(t.numel() * t.element_size() for ts in arrays.values() for t in ts))
             return ("packed", host["mask"], host["vals"], payload[3]) if packed else ("dense", host["dense"])
 
         def _unpack_csr(host, n_cols: int) -> sp.csr_matrix:
@@ -805,32 +842,31 @@ def _infercnv_compute(
         def _materialize(pending):
             """Host half of one finished batch: wait for its copies, assemble, checkpoint."""
             x_host, g_host, events, start = pending
-            for event in events:
-                event.synchronize()
-            t0 = _tick()
-            mat = _unpack_csr(x_host, plan.n_windows)
-            res_parts.append(mat)
-            _tock("csr_sec", t0)
+            if events:
+                with profiling.span("infercnv.wait", on="copies"):
+                    for event in events:
+                        event.synchronize()
+            with stage("infercnv.csr", "csr_sec"):
+                mat = _unpack_csr(x_host, plan.n_windows)
+                res_parts.append(mat)
             g_np = None
             if g_host is not None:
-                t0 = _tick()
-                # per-gene values are consumed (and checkpointed) dense, copied
-                # out of the reused host buffer
-                if g_host[0] == "dense":
-                    g_np = np.concatenate([p.numpy() for p in g_host[1]])
-                else:
-                    g_np = _unpack_csr(g_host, gpd.total).toarray()
-                gene_parts.append(g_np)
-                _tock("gene_unpack_sec", t0)
+                with stage("infercnv.gene_unpack", "gene_unpack_sec"):
+                    # per-gene values are consumed (and checkpointed) dense, copied
+                    # out of the reused host buffer
+                    if g_host[0] == "dense":
+                        g_np = np.concatenate([p.numpy() for p in g_host[1]])
+                    else:
+                        g_np = _unpack_csr(g_host, gpd.total).toarray()
+                    gene_parts.append(g_np)
             if ckpt is not None:
-                t0 = _tick()
-                _save_batch(ckpt, start, mat, g_np)
-                _tock("csr_sec", t0)
+                with stage("infercnv.checkpoint", "csr_sec"):
+                    _save_batch(ckpt, start, mat, g_np)
 
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="infercnv-pack") if use_prefetch else None
     futures: dict = {}
     if use_prefetch:
-        futures[compute_starts[0]] = pool.submit(_prepare, compute_starts[0])
+        futures[compute_starts[0]] = pool.submit(_prepare, compute_starts[0], profiling.current())
     next_prefetch = 1
     try:
         pending = None
@@ -847,21 +883,21 @@ def _infercnv_compute(
                 _progress(done_cells)
                 continue
             if use_prefetch:
-                devs, rows, nnz = futures.pop(start).result()
+                with profiling.span("infercnv.wait", on="pack"):
+                    devs, rows, nnz = futures.pop(start).result()
                 if next_prefetch < len(compute_starts):
                     nxt = compute_starts[next_prefetch]
-                    futures[nxt] = pool.submit(_prepare, nxt)
+                    futures[nxt] = pool.submit(_prepare, nxt, profiling.current())
                     next_prefetch += 1
             else:
                 devs, rows, nnz = _prepare(start)
             x_payload, g_payload = _compute([uploads.ready(dev, event) for dev, event in devs], rows, nnz)
             del devs
-            t0 = _tick()
             slot = slot_of[start]
-            x_host = _fetch(x_payload, slot, "x", "d2h_bytes")
-            g_host = _fetch(g_payload, slot, "gene", "gene_d2h_bytes") if g_payload is not None else None
-            fetched = downloads.record()
-            _tock("d2h_sec", t0)
+            with stage("infercnv.d2h", "d2h_sec"):
+                x_host = _fetch(x_payload, slot, "x", "d2h_bytes")
+                g_host = _fetch(g_payload, slot, "gene", "gene_d2h_bytes") if g_payload is not None else None
+                fetched = downloads.record()
             del x_payload, g_payload
             if pending is not None:
                 _materialize(pending)
@@ -874,16 +910,16 @@ def _infercnv_compute(
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
 
-    res = sp.vstack(res_parts, format="csr") if len(res_parts) > 1 else res_parts[0]
+    with profiling.span("infercnv.stack"):
+        res = sp.vstack(res_parts, format="csr") if len(res_parts) > 1 else res_parts[0]
     per_gene = None
     if gpd is not None:
-        t0 = _tick()
-        used = np.concatenate(gene_parts, axis=0) if len(gene_parts) > 1 else gene_parts[0]
-        # device gene columns are in coverage-group order; scatter them to the
-        # masked var axis (uncovered genes stay NaN, as in the reference's reindex)
-        per_gene = np.full((n_cells, n_genes), np.nan, dtype=used.dtype)
-        per_gene[:, plan.used_genes[gpd.covered_sorted]] = used
-        _tock("gene_scatter_sec", t0)
+        with stage("infercnv.gene_scatter", "gene_scatter_sec"):
+            used = np.concatenate(gene_parts, axis=0) if len(gene_parts) > 1 else gene_parts[0]
+            # device gene columns are in coverage-group order; scatter them to the
+            # masked var axis (uncovered genes stay NaN, as in the reference's reindex)
+            per_gene = np.full((n_cells, n_genes), np.nan, dtype=used.dtype)
+            per_gene[:, plan.used_genes[gpd.covered_sorted]] = used
     return plan.chr_pos, res, per_gene
 
 

@@ -2,7 +2,9 @@
 
 On the CPU ``trace`` records host activity only; the tests check that a
 Chrome trace is written, that ``annotate`` regions land in it, and the
-``INFERCNVPY_TPU_TRACE_DIR`` switch of ``maybe_trace`` and ``tl.infercnv``.
+``INFERCNVPY_TPU_TRACE_DIR`` switch of ``maybe_trace`` and ``tl.infercnv``,
+whose capture carries the call's stage spans (``tests/test_torch_spans.py``
+tests the spans themselves).
 """
 
 import json
@@ -68,3 +70,18 @@ def test_infercnv_call_traced(tmp_path, monkeypatch):
     captures = [p for p in tmp_path.iterdir() if p.name.startswith("infercnv-")]
     assert len(captures) == 1
     assert (captures[0] / profiling.TRACE_FILE).exists()
+
+
+def test_infercnv_env_trace_carries_the_stage_spans(tmp_path, monkeypatch):
+    adata = tcnv.datasets.synthetic_cnv_dataset(n_cells=40, n_genes=400, seed=0)
+    monkeypatch.setenv("INFERCNVPY_TPU_TRACE_DIR", str(tmp_path))
+    tcnv.tl.infercnv(adata, reference_key="cell_type", reference_cat="Oligodendrocytes (non-malignant)", device="cpu")
+    (capture,) = [p for p in tmp_path.iterdir() if p.name.startswith("infercnv-")]
+    assert profiling.last_trace_dir == str(capture)
+    events = json.loads((capture / profiling.TRACE_FILE).read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == profiling.SPAN_CATEGORY]
+    # the capture covers the whole call: the root span and the stages before the compute
+    assert [e["name"] for e in spans if e["args"]["parent"] is None] == ["infercnv"]
+    assert {"infercnv.reference", "infercnv.subset", "infercnv.plan", "infercnv.launch", "infercnv.csr"} <= {
+        e["name"] for e in spans}
+    assert [s.name for s in profiling.last_spans] == [e["name"] for e in spans]
