@@ -15,7 +15,8 @@ numpy or Python.  The numpy versions in ``ops/sparse_ingest.py`` and
 references the tests hold these against.
 
 Every packer wrapper checks dtypes, shapes and index bounds before it passes
-a pointer (the C scatters are unchecked), runs on ``torch.get_num_threads()``
+a pointer (the C scatters are unchecked; ``count_in_columns`` checks each
+column id itself before it reads the flag), runs on ``torch.get_num_threads()``
 OpenMP threads, releases the GIL for the call (ctypes does), counts its calls
 in ``.calls``, and can write into caller-owned ``out`` buffers, such as
 pinned host memory, which it overwrites completely.
@@ -33,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = [
-    "library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "GXX_FLAGS",
+    "library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "count_in_columns", "GXX_FLAGS",
     "leiden_library", "build_leiden", "leiden", "LEIDEN_FLAGS",
 ]
 
@@ -108,6 +109,9 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, f"{stem}_{suffix}")
                 fn.restype = restype
                 fn.argtypes = list(args)
+        # indices, n, keep, n_cols, n_threads
+        lib.count_in_columns.restype = _I64
+        lib.count_in_columns.argtypes = [_I32P, _I64, _P, _I64, _I32]
         _LIB = lib
     return _LIB
 
@@ -266,6 +270,25 @@ def dense_to_csr(arr) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 dense_to_csr.calls = 0
+
+
+def count_in_columns(indices, keep) -> int:
+    """How many of the column ids ``indices`` lie in a column that ``keep`` (one flag a column) marks.
+
+    A CSR row range's nonzeros in the kept genes, counted without a copy of
+    the range; the plain version is ``np.count_nonzero(keep[indices])``.
+    """
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    keep = np.ascontiguousarray(keep, dtype=np.uint8)
+    n = library().count_in_columns(indices.ctypes.data_as(_I32P), len(indices), keep.ctypes.data, len(keep),
+                                   _threads())
+    if n < 0:
+        raise IndexError(f"count_in_columns: a column index lies outside [0, {len(keep)})")
+    count_in_columns.calls += 1
+    return int(n)
+
+
+count_in_columns.calls = 0
 
 
 def leiden_library() -> ctypes.CDLL:

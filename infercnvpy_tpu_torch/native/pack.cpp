@@ -13,11 +13,14 @@
 //   coo_remap_*   CSR rows -> compact (cols, vals, counts) for the device
 //                 densify, optionally with the values rounded to bfloat16
 //   dense_*_csr_* dense result block -> CSR (a counting pass, then a fill)
+//   count_in_columns  the nonzeros of a CSR range that lie in marked columns
+//                 (a batch's upload capacity when genes are left out)
 //
 // Rows are disjoint in every output, so the row loops need no
-// synchronisation.  `lut` maps a masked-gene index to its packed column,
-// -1 for an unused gene; the Python wrappers check every index against it
-// before a call (the scatters here are unchecked).
+// synchronisation.  `lut` maps a column of the expression matrix to its
+// packed column, -1 for a column no window uses or a gene left out; the
+// Python wrappers check every index against it before a call (the scatters
+// here are unchecked).
 
 #include <cstdint>
 #include <cstring>
@@ -195,6 +198,24 @@ void dense_fill_csr_f32(const float* src, int64_t n_rows, int64_t n_cols, const 
 void dense_fill_csr_f64(const double* src, int64_t n_rows, int64_t n_cols, const int64_t* indptr, int32_t* indices,
                         double* data, int32_t n_threads) {
   dense_fill_csr(src, n_rows, n_cols, indptr, indices, data, n_threads);
+}
+
+// How many of the n column ids in `indices` lie in a column that `keep`
+// marks (nonzero); -1 if any id lies outside [0, n_cols).
+int64_t count_in_columns(const int32_t* indices, int64_t n, const uint8_t* keep, int64_t n_cols,
+                         int32_t n_threads) {
+  int64_t kept = 0;
+  int64_t bad = 0;
+#pragma omp parallel for num_threads(n_threads) schedule(static) reduction(+ : kept, bad)
+  for (int64_t j = 0; j < n; ++j) {
+    const int64_t c = indices[j];
+    if (c < 0 || c >= n_cols) {
+      ++bad;
+    } else {
+      kept += (keep[c] != 0);
+    }
+  }
+  return bad ? -1 : kept;
 }
 
 }  // extern "C"

@@ -15,16 +15,20 @@
 
 ``tl.infercnv`` opens these spans (``tl/_infercnv.py``): the root
 ``infercnv`` (attrs ``cells``, ``genes``, ``devices``), then
-``infercnv.reference``, ``infercnv.subset``, ``infercnv.plan``,
+``infercnv.reference``, ``infercnv.subset`` (attrs ``genes_kept``,
+``genes_dropped``), ``infercnv.plan``,
 ``infercnv.setup`` (child ``infercnv.slots``), per batch ``infercnv.pack``
 and ``infercnv.h2d`` (on the packer thread where the batches are
 pipelined), ``infercnv.launch``, ``infercnv.d2h``, ``infercnv.csr``,
 ``infercnv.gene_unpack``, ``infercnv.checkpoint``, ``infercnv.resume``,
 then ``infercnv.stack``, ``infercnv.gene_scatter`` and
 ``infercnv.gene_reindex``; ``infercnv.wait`` wherever a thread blocks, its
-attr ``on`` saying for what (``"pack"``, ``"copies"``, ``"compute"``).  Its
+attr ``on`` saying for what (``"pack"``, ``"copies"``, ``"compute"``, and on
+the packer thread ``"memory"``: a batch's copy waits until the previous
+batch's compute has returned its device memory).  Its
 counters: ``pinned_bytes`` (pinned host memory allocated), ``h2d_bytes``,
-``d2h_bytes`` and ``gene_d2h_bytes``.
+``d2h_bytes``, ``gene_d2h_bytes`` and ``subset_copy_bytes`` (expression
+bytes copied to select genes or change the sparse format).
 
 With recording off (no :func:`trace` running), :func:`span` returns one
 shared no-op context after a single flag check, and :func:`count` returns.

@@ -35,6 +35,7 @@ import contextlib
 import hashlib
 import json
 import os
+import threading
 import time
 from collections.abc import Sequence
 from concurrent.futures import ThreadPoolExecutor
@@ -154,8 +155,16 @@ def infercnv(
     ``infercnv.pack`` and ``infercnv.h2d`` (on the packer thread when
     pipelined), ``infercnv.launch``, ``infercnv.d2h``, ``infercnv.csr`` and
     the rest that ``profiling`` lists, ``infercnv.wait`` wherever a thread
-    blocks (its ``on``: ``"pack"``, ``"copies"`` or ``"compute"``), and the
-    counters ``pinned_bytes``, ``h2d_bytes`` and ``d2h_bytes``.
+    blocks (its ``on``: ``"pack"``, ``"copies"``, ``"compute"`` or
+    ``"memory"``), and the
+    counters ``pinned_bytes``, ``h2d_bytes``, ``d2h_bytes`` and
+    ``subset_copy_bytes``.
+
+    The genes are selected without a copy: the packers read the expression
+    matrix in place through the kept genes' column positions.  Sparse input
+    in another format than CSR is converted once (its bytes counted in
+    ``subset_copy_bytes``, as is the masked copy the checkpoint's
+    fingerprint hashes when genes are dropped).
     """
     del n_jobs
     # validation: messages are observable API surface (reference tl/_infercnv.py:95-105)
@@ -184,17 +193,19 @@ def infercnv(
         with profiling.span("infercnv.reference"):
             reference = _get_reference(adata, reference_key, reference_cat, reference, layer)[:, keep]
 
-        with profiling.span("infercnv.subset"):
-            sub = adata[:, keep]
-            expr = sub.X if layer is None else sub.layers[layer]
-            if sp.issparse(expr):
-                expr = expr.tocsr()
-            var = sub.var.loc[:, ["chromosome", "start", "end"]]
+        # no gene subset is copied: the packers read the caller's matrix through
+        # the kept genes' column positions
+        n_kept = int(keep.sum())
+        with profiling.span("infercnv.subset", genes_kept=n_kept, genes_dropped=len(keep) - n_kept):
+            var = adata.var.loc[keep, ["chromosome", "start", "end"]]
+            expr = _as_csr(adata.X if layer is None else adata.layers[layer])
+            columns = np.flatnonzero(keep)
 
         chr_pos, res, per_gene = _infercnv_compute(
             expr,
             var,
             np.asarray(reference, dtype=np.float64),
+            columns=columns,
             lfc_clip=lfc_clip,
             window_size=window_size,
             step=step,
@@ -274,6 +285,30 @@ def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, sta
     with _stage("infercnv.gene_reindex", stats, "gene_reindex_sec"):
         df = pd.DataFrame(per_gene, index=obs_names, columns=masked_names)
         return df.reindex(columns=var_names, fill_value=np.nan).values
+
+
+def _as_csr(expr):
+    """``expr``, sparse input in CSR form: a CSR matrix is itself, another format is converted.
+
+    A conversion's bytes go to the counter ``subset_copy_bytes``.
+    """
+    if not sp.issparse(expr) or expr.format == "csr":
+        return expr
+    expr = expr.tocsr()
+    profiling.count("subset_copy_bytes", expr.data.nbytes + expr.indices.nbytes + expr.indptr.nbytes)
+    return expr
+
+
+def _masked_copy(expr, columns: np.ndarray):
+    """The columns ``columns`` of ``expr`` as a new matrix, its bytes counted in ``subset_copy_bytes``."""
+    if sp.issparse(expr):
+        out = expr[:, columns]
+        nbytes = out.data.nbytes + out.indices.nbytes + out.indptr.nbytes
+    else:
+        out = np.asarray(expr)[:, columns]
+        nbytes = out.nbytes
+    profiling.count("subset_copy_bytes", nbytes)
+    return out
 
 
 def _pick_dtype(expr, dtype) -> torch.dtype:
@@ -563,11 +598,17 @@ def _infercnv_compute(
     calculate_gene_values: bool = False,
     checkpoint_dir=None,
     transfer_dtype=None,
+    columns: np.ndarray | None = None,
 ):
     """Run the full pipeline; returns ``(chr_pos, csr result, per-gene matrix or None)``.
 
     The per-gene matrix is (cells, masked genes), NaN for uncovered genes.
     ``device`` is one torch device or a list of them, one per cell shard.
+
+    ``columns`` — the increasing positions in ``expr``'s columns of ``var``'s
+    rows (the masked genes); the packers read ``expr`` in place through them
+    and skip the other columns.  ``None`` means ``expr``'s columns are
+    ``var``'s rows.  ``reference`` is over the masked genes either way.
 
     ``stats`` (optional) — a dict that receives a per-stage breakdown:
     ``host_pack_sec``, ``h2d_sec``, ``h2d_bytes``, ``compute_sec``,
@@ -586,11 +627,16 @@ def _infercnv_compute(
 
     ``checkpoint_dir`` and ``transfer_dtype`` as in :func:`infercnv`.
     """
-    if sp.issparse(expr):
-        expr = expr.tocsr()  # batches are row ranges of the CSR arrays
-    n_cells, n_genes = expr.shape
+    expr = _as_csr(expr)  # batches are row ranges of the CSR arrays
+    n_cells, n_cols = expr.shape
+    n_genes = len(var)
     if n_cells == 0:
         raise ValueError("adata contains no cells — nothing to infer CNV from.")
+    columns = np.arange(n_cols) if columns is None else np.asarray(columns, dtype=np.int64)
+    if len(columns) != n_genes or (n_genes and (columns[0] < 0 or columns[-1] >= n_cols)) \
+            or np.any(np.diff(columns) <= 0):
+        raise ValueError(f"var's {n_genes} genes need as many increasing positions among expr's {n_cols} columns")
+    drops = n_genes < n_cols  # some of expr's columns are not var's genes
     with profiling.span("infercnv.plan"):
         plan = build_window_plan(var, window_size, step)
     if plan.n_windows == 0:
@@ -629,8 +675,10 @@ def _infercnv_compute(
 
         ckpt = None
         if checkpoint_dir is not None:
+            # the fingerprint is the JAX package's digest of the masked matrix
+            masked = _masked_copy(expr, columns) if drops else expr
             fp = _ckpt_fingerprint(
-                expr, var, reference, n_cells, n_genes, window_size, step, lfc_clip, dynamic_threshold,
+                masked, var, reference, n_cells, n_genes, window_size, step, lfc_clip, dynamic_threshold,
                 chunksize, calculate_gene_values, batch_cells, cdtype, tdt_name,
             )
             ckpt = _open_checkpoint(checkpoint_dir, fp, n_cells, batch_cells)
@@ -660,6 +708,9 @@ def _infercnv_compute(
 
         gpd = gene_projection_data(plan) if calculate_gene_values else None
         lut = _pack_lut(plan, n_genes)
+        # the packers read expr's own columns through the LUT spread onto them
+        col_lut = np.full(n_cols, -1, dtype=np.int64)
+        col_lut[columns] = lut
         width = packed_width(plan)
         stage_dtype = tdt if tdt is not None else cdtype
 
@@ -685,9 +736,17 @@ def _infercnv_compute(
             specs = {"chunk": ((rows_padded,), torch.int64)}
             if use_sparse:
                 # one nnz capacity for all batches of this run (the per-batch
-                # maximum, bucket-rounded), so every batch ships buffers of one size
+                # maximum of the masked genes' nonzeros, bucket-rounded), so every
+                # batch ships buffers of one size
                 ptr = expr.indptr
-                shared_cap = round_nnz_cap(max(int(ptr[min(s + batch_cells, n_cells)] - ptr[s]) for s in starts))
+                bounds = [(int(ptr[s]), int(ptr[min(s + batch_cells, n_cells)])) for s in starts]
+                if drops:
+                    kept = np.zeros(n_cols, dtype=np.uint8)
+                    kept[columns] = 1
+                    batch_nnz = [native.count_in_columns(expr.indices[lo:hi], kept) for lo, hi in bounds]
+                else:
+                    batch_nnz = [hi - lo for lo, hi in bounds]
+                shared_cap = round_nnz_cap(max(batch_nnz))
                 specs["cols"] = ((shared_cap,), _TORCH_INT[np.dtype(col_index_dtype(width))])
                 specs["vals"] = ((shared_cap,), stage_dtype)
                 specs["counts"] = ((rows_padded,), torch.int32)
@@ -746,10 +805,11 @@ def _infercnv_compute(
                 gene_parts.append(z["gene"])
 
     if compute_starts:
-        def _prepare(start, parent=None):
+        def _prepare(start, parent=None, after=None):
             """Host half of one batch: pack into its slot, start the copy to the device.
 
-            ``parent`` is the span that handed the batch to the packer thread.
+            ``parent`` is the span that handed the batch to the packer thread;
+            ``after`` an event the copy waits for (the previous batch computed).
             """
             slot = slot_of[start]
             stop = min(start + batch_cells, n_cells)
@@ -761,7 +821,7 @@ def _infercnv_compute(
                     val_dtype = "bfloat16" if stage_dtype == torch.bfloat16 else np_cdtype
                     vals = scratch if convert else host["vals"]
                     _, _, _, nnz = coo_from_csr_batch(
-                        expr, lut, width, shared_cap, val_dtype, rows=(start, stop),
+                        expr, col_lut, width, shared_cap, val_dtype, rows=(start, stop),
                         out=(host["cols"], vals, host["counts"][:rows]),
                     )
                     host["counts"][rows:] = 0
@@ -769,10 +829,10 @@ def _infercnv_compute(
                 else:
                     block = scratch if convert else host["x"]
                     if sp.issparse(expr):
-                        pack_csr(expr, plan, lut, dtype=np_cdtype, rows=(start, stop), out=block[:rows])
+                        pack_csr(expr, plan, col_lut, dtype=np_cdtype, rows=(start, stop), out=block[:rows])
                     else:
                         raw = _ensure_array(np.asarray(expr[start:stop]))
-                        pack_columns(raw, plan, lut, dtype=np_cdtype, out=block[:rows])
+                        pack_columns(raw, plan, col_lut, dtype=np_cdtype, out=block[:rows])
                     block[rows:] = 0
                     key = "x"
                 if convert:
@@ -783,6 +843,9 @@ def _infercnv_compute(
                 np.floor_divide(chunk_base + start, chunksize, out=chunk)
                 chunk[rows:] = num_chunks
 
+            if after is not None:
+                with profiling.span("infercnv.wait", parent=parent, on="memory"):
+                    after.wait()
             with stage("infercnv.h2d", "h2d_sec", parent=parent):
                 devs = uploads.to_device(slot)
                 count("h2d_bytes", uploads.nbytes)
@@ -865,6 +928,10 @@ def _infercnv_compute(
 
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="infercnv-pack") if use_prefetch else None
     futures: dict = {}
+    # a prefetched batch's copy allocates its device buffers only once the previous
+    # batch's compute has returned and freed its dense block, so the device's peak
+    # is one batch's, whatever the pace of the two threads
+    computed = {s: threading.Event() for s in compute_starts} if use_prefetch else {}
     if use_prefetch:
         futures[compute_starts[0]] = pool.submit(_prepare, compute_starts[0], profiling.current())
     next_prefetch = 1
@@ -887,12 +954,14 @@ def _infercnv_compute(
                     devs, rows, nnz = futures.pop(start).result()
                 if next_prefetch < len(compute_starts):
                     nxt = compute_starts[next_prefetch]
-                    futures[nxt] = pool.submit(_prepare, nxt, profiling.current())
+                    futures[nxt] = pool.submit(_prepare, nxt, profiling.current(), computed[start])
                     next_prefetch += 1
             else:
                 devs, rows, nnz = _prepare(start)
             x_payload, g_payload = _compute([uploads.ready(dev, event) for dev, event in devs], rows, nnz)
             del devs
+            if start in computed:
+                computed[start].set()
             slot = slot_of[start]
             with stage("infercnv.d2h", "d2h_sec"):
                 x_host = _fetch(x_payload, slot, "x", "d2h_bytes")
@@ -908,6 +977,8 @@ def _infercnv_compute(
             _materialize(pending)
     finally:
         if pool is not None:
+            for event in computed.values():  # a failed batch must not leave the packer waiting
+                event.set()
             pool.shutdown(wait=True, cancel_futures=True)
 
     with profiling.span("infercnv.stack"):

@@ -139,12 +139,15 @@ def test_infercnv_stage_spans_on_every_thread(tmp_path):
     assert [s.name for s in roots] == ["infercnv"] * 3
     assert roots[0].attrs == {"cells": 240, "genes": 800, "devices": 1}
     assert {s.name for s in found} == STAGES
-    assert {s.attrs["on"] for s in found if s.name == "infercnv.wait"} == {"pack", "compute"}
+    assert {s.attrs["on"] for s in found if s.name == "infercnv.wait"} == {"pack", "compute", "memory"}
     main = threading.get_native_id()
     first = roots[0].id
     packs = [s for s in found if s.name == "infercnv.pack" and s.call == first]
     assert len(packs) == 3 and all(s.thread != main and s.parent == first for s in packs)
-    assert all(s.thread == main for s in found if s.name not in ("infercnv.pack", "infercnv.h2d"))
+    memory_waits = [s for s in found if s.attrs.get("on") == "memory"]  # two pipelined calls, two later copies each
+    assert len(memory_waits) == 4 and all(s.thread != main for s in memory_waits)
+    assert all(s.thread == main for s in found
+               if s.name not in ("infercnv.pack", "infercnv.h2d") and s not in memory_waits)
     assert all(s.call == r.id for r in roots for s in found if r.start <= s.start and s.end <= r.end)
     assert [s.name for s in found if s.call == roots[2].id].count("infercnv.resume") == 2
     by_id = {s.id: s for s in found}
@@ -170,3 +173,68 @@ def test_infercnv_h2d_bytes_counter_equals_the_stage_clock(tmp_path):
                       chunksize=40, batch_cells=80, dtype=None, device=torch.device("cpu"), stats=stats)
     assert counted == stats["h2d_bytes"] > 0
     assert d2h == stats["d2h_bytes"] > 0
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc"])
+def test_infercnv_subset_span_counts_genes_and_copies(tmp_path, fmt):
+    """``infercnv.subset`` carries the genes kept and dropped; ``subset_copy_bytes`` counts the expression bytes
+    copied to select genes or change formats: none for CSR input, the converted matrix's for CSC."""
+    adata = _dataset()
+    if fmt == "csc":
+        adata.X = adata.X.tocsc()
+    keep = (adata.var["chromosome"].notnull() & ~adata.var["chromosome"].isin(["chrX", "chrY"])).to_numpy()
+    with profiling.trace(tmp_path):
+        tcnv.tl.infercnv(adata, **KW)
+    subset = [s for s in profiling.last_spans if s.name == "infercnv.subset"]
+    assert len(subset) == 1
+    assert subset[0].attrs == {"genes_kept": int(keep.sum()), "genes_dropped": int((~keep).sum())}
+    assert 0 < subset[0].attrs["genes_dropped"] < 800
+    copied = sum(s.counts.get("subset_copy_bytes", 0) for s in profiling.last_spans)
+    if fmt == "csr":
+        assert copied == 0
+    else:
+        csr = adata.X.tocsr()
+        assert copied == csr.data.nbytes + csr.indices.nbytes + csr.indptr.nbytes > 0
+        assert subset[0].counts == {"subset_copy_bytes": copied}
+
+
+def test_prefetched_copy_waits_for_the_previous_compute(tmp_path):
+    """A pipelined batch's copy starts only after the previous batch's compute has returned (``infercnv.wait``
+    ``on="memory"`` on the packer thread), so the device never holds the next batch's uploads beside the current
+    batch's dense block."""
+    with profiling.trace(tmp_path):
+        tcnv.tl.infercnv(_dataset(), **KW)  # three batches, pipelined
+    found = profiling.last_spans
+    launches = sorted((s for s in found if s.name == "infercnv.launch"), key=lambda s: s.start)
+    copies = sorted((s for s in found if s.name == "infercnv.h2d"), key=lambda s: s.start)
+    waits = [s for s in found if s.name == "infercnv.wait" and s.attrs["on"] == "memory"]
+    assert len(launches) == len(copies) == 3 and len(waits) == 2
+    for launch, copy in zip(launches, copies[1:]):
+        assert copy.start >= launch.end
+
+
+def test_a_failed_batch_does_not_leave_the_packer_waiting(monkeypatch):
+    """The packer thread waits for the previous batch's compute; when that compute raises, the call raises too
+    and returns."""
+    import infercnvpy_tpu_torch.tl._infercnv as drv
+
+    def failing(*a, **k):
+        def run(*args):
+            raise RuntimeError("planted failure")
+
+        return run
+
+    monkeypatch.setattr(drv, "sharded_infercnv_fn", failing)
+    raised = []
+
+    def call():
+        try:
+            tcnv.tl.infercnv(_dataset(), **KW)
+        except RuntimeError as e:
+            raised.append(str(e))
+
+    worker = threading.Thread(target=call, daemon=True)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    assert raised == ["planted failure"]
