@@ -1840,7 +1840,7 @@ def phase_multi_device(e2e: dict, gene: dict, synthetic) -> dict:
             lambda: tcnv.tl.cnv_score(s1, groupby="cnv_leiden", inplace=False, device=dev))
         walls[f"ithcna_{name}"], scores[f"ith_{name}"] = _timed_result(
             lambda: tcnv.tl.ithcna(s1, "cnv_leiden", inplace=False, device=dev))
-    host = tcnv.tl.cnv_score(s1, groupby="cnv_leiden", inplace=False)
+    host = tcnv.tl.cnv_score(s1, groupby="cnv_leiden", inplace=False, device="cpu")
     rel = {}
     for what in ("cnv", "ith"):
         a1, a2 = scores[f"{what}_1device"], scores[f"{what}_2shards"]

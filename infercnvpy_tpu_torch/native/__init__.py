@@ -33,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import profiling
+
 __all__ = [
     "library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "count_in_columns", "GXX_FLAGS",
     "leiden_library", "build_leiden", "leiden", "LEIDEN_FLAGS",
@@ -321,9 +323,10 @@ def leiden(indptr, indices, weights, *, resolution: float, seed: int, max_rounds
     if len(indices) and (int(indices.min()) < 0 or int(indices.max()) >= n):
         raise IndexError(f"neighbour index out of range for {n} nodes")
     labels = np.empty(n, dtype=np.int64)
-    leiden_library().leiden_cluster(
+    communities = leiden_library().leiden_cluster(
         indptr.ctypes.data_as(_I64P), indices.ctypes.data_as(_I32P),
         weights.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), n, float(resolution), int(seed),
         int(max_rounds), labels.ctypes.data_as(_I64P),
     )
+    profiling.count("leiden_communities", int(communities))
     return labels

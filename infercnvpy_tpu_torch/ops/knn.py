@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from .._util import full_f32_matmul, pick_shards
 from ..parallel.mesh import replicate
 
@@ -73,4 +74,5 @@ def exact_knn(X: np.ndarray, k: int, *, block: int = 4096, device=None):
             for (_, qs), (bd, bi) in zip(group, found):
                 dists[qs : qs + bd.shape[0]] = bd.cpu().numpy()
                 idxs[qs : qs + bd.shape[0]] = bi.cpu().numpy()
+                profiling.count("knn_flops", 2 * bd.shape[0] * n * d)
     return dists, idxs

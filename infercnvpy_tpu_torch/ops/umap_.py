@@ -22,6 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import profiling
 from .._util import pick_device
 
 __all__ = ["umap_layout", "find_ab_params", "spectral_init"]
@@ -150,19 +151,22 @@ def umap_layout(
 
     heads, tails, probs = _select_edges(graph, n_epochs)
     a, b = find_ab_params(spread, min_dist)
-    emb0 = spectral_init(graph, n_components, seed) if init is None else np.asarray(init, np.float32)
+    with profiling.span("umap.init", cells=n):
+        emb0 = spectral_init(graph, n_components, seed) if init is None else np.asarray(init, np.float32)
 
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    emb = _optimize(
-        torch.from_numpy(np.ascontiguousarray(emb0)).to(dev),
-        torch.from_numpy(heads.astype(np.int64)).to(dev),
-        torch.from_numpy(tails.astype(np.int64)).to(dev),
-        torch.from_numpy(probs).to(dev),
-        a,
-        b,
-        gen,
-        int(n_epochs),
-        int(negative_sample_rate),
-        float(initial_alpha),
-    )
-    return emb.cpu().numpy().astype(np.float32, copy=False)
+    with profiling.span("umap.epochs", cells=n, epochs=int(n_epochs)):
+        profiling.count("umap_edges", len(heads))
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        emb = _optimize(
+            torch.from_numpy(np.ascontiguousarray(emb0)).to(dev),
+            torch.from_numpy(heads.astype(np.int64)).to(dev),
+            torch.from_numpy(tails.astype(np.int64)).to(dev),
+            torch.from_numpy(probs).to(dev),
+            a,
+            b,
+            gen,
+            int(n_epochs),
+            int(negative_sample_rate),
+            float(initial_alpha),
+        )
+        return emb.cpu().numpy().astype(np.float32, copy=False)

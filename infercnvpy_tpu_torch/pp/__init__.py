@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import scipy.sparse as sp
 
-from .. import tl
+from .. import profiling, tl
 from .._util import pick_shards, warn
 
 __all__ = ["neighbors"]
@@ -44,12 +44,15 @@ def neighbors(
         tl.pca(adata, device=devices)
 
     X = adata.obsm[f"X_{use_rep}"]
-    if sp.issparse(X):
-        X = X.toarray()
     k = int(min(n_neighbors, X.shape[0]))
-    dists, idxs = exact_knn(X, k, device=devices, **kwargs)
-    distances = knn_distance_matrix(dists, idxs)
-    connectivities = fuzzy_connectivities(dists, idxs, device=devices[0])
+    with profiling.span("neighbors", cells=X.shape[0], k=k):
+        if sp.issparse(X):
+            X = X.toarray()
+        with profiling.span("neighbors.knn", cells=X.shape[0], k=k):
+            dists, idxs = exact_knn(X, k, device=devices, **kwargs)
+        distances = knn_distance_matrix(dists, idxs)
+        with profiling.span("neighbors.connectivities", cells=X.shape[0], k=k):
+            connectivities = fuzzy_connectivities(dists, idxs, device=devices[0])
 
     if not inplace:
         return distances, connectivities

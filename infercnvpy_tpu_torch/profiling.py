@@ -30,6 +30,15 @@ counters: ``pinned_bytes`` (pinned host memory allocated), ``h2d_bytes``,
 ``d2h_bytes``, ``gene_d2h_bytes`` and ``subset_copy_bytes`` (expression
 bytes copied to select genes or change the sparse format).
 
+The downstream entry points open a root span each, with attrs ``cells``
+and, where it applies, ``comps`` or ``k``: ``pca`` (``tl.pca``),
+``neighbors`` (``pp.neighbors``, children ``neighbors.knn``, counter
+``knn_flops``: 2 · query rows · database rows · features over the query
+blocks, and ``neighbors.connectivities``), ``leiden`` (``tl.leiden``,
+counter ``leiden_communities``: the native library's count), ``cnv_score``
+and ``umap`` (``tl.umap``, children ``umap.init``, the spectral start, and
+``umap.epochs``, counter ``umap_edges``: the edges the epochs sample).
+
 With recording off (no :func:`trace` running), :func:`span` returns one
 shared no-op context after a single flag check, and :func:`count` returns.
 The stage clock of ``tl/_infercnv.py::_infercnv_compute`` (its ``stats``)

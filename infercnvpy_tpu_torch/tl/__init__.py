@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 
+from .. import profiling
 from .._util import pick_device, pick_shards, warn
 from ._copykat import copykat
 from ._infercnv import clear_transform_caches, infercnv
@@ -46,8 +47,10 @@ def leiden(
         raise KeyError(f"{conn_key} not found in adata.obsp. Did you run `pp.neighbors`?")
     if not inplace:
         adata = adata.copy()
-    labels = _leiden(adata.obsp[conn_key], resolution=resolution, seed=random_state, **kwargs)
-    adata.obs[key_added] = pd.Categorical([str(x) for x in labels], categories=[str(x) for x in sorted(set(labels))])
+    with profiling.span("leiden", cells=adata.n_obs):
+        labels = _leiden(adata.obsp[conn_key], resolution=resolution, seed=random_state, **kwargs)
+        adata.obs[key_added] = pd.Categorical([str(x) for x in labels],
+                                              categories=[str(x) for x in sorted(set(labels))])
     adata.uns[key_added] = {"params": {"resolution": resolution, "random_state": random_state}}
     return None if inplace else adata
 
@@ -79,7 +82,8 @@ def pca(
     X = adata.obsm[f"X_{use_rep}"]
     if n_comps is None:
         n_comps = min(50, min(X.shape) - 1)
-    scores, components, svals = truncated_svd(X, n_comps, zero_center=zero_center, device=devices, **kwargs)
+    with profiling.span("pca", cells=X.shape[0], comps=n_comps):
+        scores, components, svals = truncated_svd(X, n_comps, zero_center=zero_center, device=devices, **kwargs)
     if inplace:
         adata.obsm[f"X_{key_added}"] = scores
         adata.uns[key_added] = {"variance": (svals**2) / max(1, X.shape[0] - 1)}
@@ -103,7 +107,8 @@ def umap(
     conn_key = f"{neighbors_key}_connectivities"
     if conn_key not in adata.obsp:
         raise KeyError(f"{conn_key} not found in adata.obsp. Did you run `pp.neighbors`?")
-    emb = umap_layout(adata.obsp[conn_key], device=dev, **kwargs)
+    with profiling.span("umap", cells=adata.n_obs):
+        emb = umap_layout(adata.obsp[conn_key], device=dev, **kwargs)
     if inplace:
         adata.obsm[f"X_{key_added}"] = emb
         return None

@@ -2,10 +2,11 @@
 
 Behavioural contract follows reference tl/_scores.py:
 * ``cnv_score``  — per-cluster mean of \\|X_cnv\\| broadcast to cells (:14-74);
-  host numpy by default, as the JAX package computes it without a mesh; with
-  ``device`` each device sums |X| per group over its rows in float64 and the
-  host adds the devices' sums (the JAX package's ``mesh`` branch,
-  ``infercnvpy_tpu/tl/_scores.py:32-88``);
+  ``device=None`` is the CUDA device, as for every other downstream entry
+  point: each device sums |X| of its rows in float64 and the host adds each
+  group's row sums (the JAX package's ``mesh`` branch,
+  ``infercnvpy_tpu/tl/_scores.py:32-88``); ``device="cpu"`` is host numpy,
+  as the JAX package computes it without a mesh;
 * ``ithgex``     — per-group IQR of pairwise Pearson correlations of
   expression (:77-151);
 * ``ithcna``     — the same on the CNV matrix (:154-221).
@@ -26,6 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from .. import profiling
 from .._util import _choose_mtx_rep, pick_shards
 from ..parallel.mesh import shard_rows
 
@@ -46,9 +48,10 @@ def cnv_score(
 ) -> Mapping[Any, np.number] | None:
     """Assign each cnv cluster a CNV score (mean |CNV| per cluster).
 
-    Reference: tl/_scores.py:14-74.  ``device=None`` computes on the host;
-    a device, or a list of devices over which the cells are split, sums each
-    group's |X| on the devices in float64 (:func:`_group_abs_mean_sharded`).
+    Reference: tl/_scores.py:14-74.  ``device=None`` is the CUDA device; it,
+    any other device, or a list of devices over which the cells are split,
+    sums |X| on the devices in float64 (:func:`_group_abs_mean_sharded`).
+    ``device="cpu"`` computes on the host with numpy, cluster by cluster.
     """
     if obs_key is not None:
         warnings.warn(
@@ -63,54 +66,67 @@ def cnv_score(
         raise ValueError("`cnv_leiden` not found in `adata.obs`. Did you run `tl.leiden`?")
 
     X = adata.obsm[f"X_{use_rep}"]
-    groups = adata.obs[groupby].values
-    uniques = list(adata.obs[groupby].unique())
-    if device is not None:
-        devices = pick_shards(device, "tl.cnv_score")
-        code_of = {g: i for i, g in enumerate(uniques)}
-        codes = np.fromiter((code_of[g] for g in np.asarray(groups)), dtype=np.int64, count=len(groups))
-        means = _group_abs_mean_sharded(X, codes, len(uniques), devices)
-        cluster_score = {g: means[i] for i, g in enumerate(uniques)}
-    else:
-        cluster_score = {}
-        for cluster in uniques:
-            mask = np.asarray(groups == cluster)
-            sub = X[mask, :]
-            if sp.issparse(sub):
-                # mean of |values| over the FULL dense extent (zeros count)
-                cluster_score[cluster] = np.abs(sub).sum() / (sub.shape[0] * sub.shape[1])
-            else:
-                cluster_score[cluster] = np.mean(np.abs(np.asarray(sub)))
+    with profiling.span("cnv_score", cells=X.shape[0]):
+        groups = adata.obs[groupby].values
+        uniques = list(adata.obs[groupby].unique())
+        if not _on_host(device):
+            devices = pick_shards(device, "tl.cnv_score")
+            code_of = {g: i for i, g in enumerate(uniques)}
+            codes = np.fromiter((code_of[g] for g in np.asarray(groups)), dtype=np.int64, count=len(groups))
+            means = _group_abs_mean_sharded(X, codes, len(uniques), devices)
+            cluster_score = {g: means[i] for i, g in enumerate(uniques)}
+        else:
+            cluster_score = {}
+            for cluster in uniques:
+                mask = np.asarray(groups == cluster)
+                sub = X[mask, :]
+                if sp.issparse(sub):
+                    # mean of |values| over the FULL dense extent (zeros count)
+                    cluster_score[cluster] = np.abs(sub).sum() / (sub.shape[0] * sub.shape[1])
+                else:
+                    cluster_score[cluster] = np.mean(np.abs(np.asarray(sub)))
+        if inplace:
+            adata.obs[key_added] = np.array([cluster_score[c] for c in adata.obs[groupby]])
+    return None if inplace else cluster_score
 
-    if inplace:
-        score_array = np.array([cluster_score[c] for c in adata.obs[groupby]])
-        adata.obs[key_added] = score_array
-        return None
-    return cluster_score
+
+def _on_host(device) -> bool:
+    """Whether ``device`` names the CPU alone (not in a list): ``cnv_score``'s host numpy path."""
+    return device is not None and not isinstance(device, (list, tuple)) and torch.device(device).type == "cpu"
 
 
 def _group_abs_mean_sharded(X, codes: np.ndarray, n_groups: int, devices: list, block_rows: int = 65536):
     """Per-group mean |X| with the cells split over ``devices``; float64 (n_groups,).
 
     Each row block is split into one contiguous shard a device; every device
-    sums |x| of each row and then each group's rows in float64, and the host
-    adds the devices' group sums in float64 (the JAX package's
-    ``_group_abs_mean_sharded``, ``infercnvpy_tpu/tl/_scores.py:59-88``).  The
-    group sizes are counted on the host.
+    sums |x| of each of its rows in float64 (a CSR shard's stored values
+    alone, by ``segment_reduce`` over its rows; any other block densified on
+    the host first), and the host adds each group's row sums in float64
+    (the JAX package's ``_group_abs_mean_sharded``,
+    ``infercnvpy_tpu/tl/_scores.py:59-88``, where each device sums its
+    groups).  No sum uses atomics, so a rerun gives the same bits.
     """
     n, d = X.shape
-    sums = np.zeros(n_groups)
+    csr = sp.issparse(X) and X.format == "csr"
+    row_abs = np.empty(n)
     for start in range(0, n, block_rows):
-        blk = X[start : start + block_rows]
-        blk = np.ascontiguousarray(blk.toarray() if sp.issparse(blk) else np.asarray(blk))
-        c = codes[start : start + block_rows]
+        stop = min(n, start + block_rows)
+        if not csr:
+            blk = X[start:stop]
+            blk = np.ascontiguousarray(blk.toarray() if sp.issparse(blk) else np.asarray(blk))
         parts = []
-        for dev, (lo, hi) in zip(devices, shard_rows(blk.shape[0], len(devices))):
-            absrow = torch.from_numpy(blk[lo:hi]).to(dev).abs().sum(dim=1, dtype=torch.float64)
-            parts.append(torch.zeros(n_groups, dtype=torch.float64, device=dev).index_add_(
-                0, torch.from_numpy(c[lo:hi]).to(dev), absrow))
-        for p in parts:
-            sums += p.cpu().numpy()
+        for dev, (lo, hi) in zip(devices, shard_rows(stop - start, len(devices))):
+            if csr:
+                a, b = X.indptr[start + lo], X.indptr[start + hi]
+                vals = torch.from_numpy(np.ascontiguousarray(X.data[a:b])).to(dev).abs().double()
+                lengths = torch.from_numpy(np.diff(X.indptr[start + lo : start + hi + 1]).astype(np.int64)).to(dev)
+                part = torch.segment_reduce(vals, "sum", lengths=lengths)
+            else:
+                part = torch.from_numpy(blk[lo:hi]).to(dev).abs().sum(dim=1, dtype=torch.float64)
+            parts.append((start + lo, start + hi, part))
+        for lo, hi, part in parts:
+            row_abs[lo:hi] = part.cpu().numpy()
+    sums = np.bincount(codes, weights=row_abs, minlength=n_groups)
     counts = np.bincount(codes, minlength=n_groups).astype(np.float64)
     return sums / np.maximum(counts * d, 1.0)
 

@@ -408,8 +408,8 @@ def test_cnv_score_devices(synthetic_pair, mesh8):
     from infercnvpy_tpu import tl as jtl
 
     adata, ja = synthetic_pair
-    host = tcnv.tl.cnv_score(adata, groupby="grp", inplace=False)
-    one = tcnv.tl.cnv_score(adata, groupby="grp", inplace=False, device="cpu")
+    host = tcnv.tl.cnv_score(adata, groupby="grp", inplace=False, device="cpu")
+    one = tcnv.tl.cnv_score(adata, groupby="grp", inplace=False, device=["cpu"])
     eight = tcnv.tl.cnv_score(adata, groupby="grp", inplace=False, device=["cpu"] * 8)
     jax_mesh = jtl.cnv_score(ja, groupby="grp", inplace=False, mesh=mesh8)
     assert set(host) == set(one) == set(eight) == set(jax_mesh)

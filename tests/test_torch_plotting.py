@@ -56,7 +56,7 @@ def analysed():
     tcnv.tl.pca(adata, device="cpu")
     tcnv.pp.neighbors(adata, device="cpu")
     tcnv.tl.leiden(adata)
-    tcnv.tl.cnv_score(adata)
+    tcnv.tl.cnv_score(adata, device="cpu")
     tcnv.tl.umap(adata, device="cpu", n_epochs=50)
     tcnv.tl.tsne(adata, device="cpu", n_iter=250)
     assert adata.obs["cnv_leiden"].nunique() >= 3  # dendrogram=True reorders from 3 groups on

@@ -66,7 +66,7 @@ def test_ithcna(adata_ithgex):
 
 
 def test_cnv_score(adata_ithgex):
-    res = tcnv.tl.cnv_score(adata_ithgex, "group", inplace=False)
+    res = tcnv.tl.cnv_score(adata_ithgex, "group", inplace=False, device=CPU)
     assert res["A"] == pytest.approx(2.25, abs=0.001)
     assert res["B"] == pytest.approx(2.5, abs=0.001)
 
@@ -74,7 +74,7 @@ def test_cnv_score(adata_ithgex):
 def test_scores_inplace(adata_ithgex):
     tcnv.tl.ithgex(adata_ithgex, "group", device=CPU)
     tcnv.tl.ithcna(adata_ithgex, "group", device=CPU)
-    tcnv.tl.cnv_score(adata_ithgex, "group")
+    tcnv.tl.cnv_score(adata_ithgex, "group", device=CPU)
     assert {"ithgex", "ithcna", "cnv_score"} <= set(adata_ithgex.obs.columns)
 
 
@@ -82,7 +82,7 @@ def test_cnv_score_needs_leiden_and_warns_on_obs_key(adata_ithgex):
     with pytest.raises(ValueError, match="`cnv_leiden` not found"):
         tcnv.tl.cnv_score(adata_ithgex)
     with pytest.warns(FutureWarning, match="obs_key"):
-        tcnv.tl.cnv_score(adata_ithgex, obs_key="group")
+        tcnv.tl.cnv_score(adata_ithgex, obs_key="group", device=CPU)
 
 
 def _pair(rep, seed=0, n=500, d=180, n_groups=5, dtype=np.float32):
@@ -103,12 +103,12 @@ def _pair(rep, seed=0, n=500, d=180, n_groups=5, dtype=np.float32):
 @pytest.mark.parametrize("rep", REPS, ids=["dense", "csr", "csc"])
 def test_cnv_score_matches_jax(rep, dtype):
     ours, ref = _pair(rep, dtype=dtype)
-    got = tcnv.tl.cnv_score(ours, "grp", inplace=False)
+    got = tcnv.tl.cnv_score(ours, "grp", inplace=False, device=CPU)
     want = cnv.tl.cnv_score(ref, "grp", inplace=False)
     assert set(got) == set(want)
     for g in want:
         npt.assert_allclose(got[g], want[g], rtol=1e-12)
-    tcnv.tl.cnv_score(ours, "grp")
+    tcnv.tl.cnv_score(ours, "grp", device=CPU)
     cnv.tl.cnv_score(ref, "grp")
     npt.assert_allclose(ours.obs["cnv_score"].values, ref.obs["cnv_score"].values, rtol=1e-12)
 

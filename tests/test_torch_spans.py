@@ -238,3 +238,74 @@ def test_a_failed_batch_does_not_leave_the_packer_waiting(monkeypatch):
     worker.join(timeout=120)
     assert not worker.is_alive()
     assert raised == ["planted failure"]
+
+
+# ----- the downstream chain --------------------------------------------------------------------------------
+
+#: root span -> its attrs for a chain on ``_chain_input()``'s 300 cells; and each child's root
+CHAIN_ROOTS = {"pca": {"cells": 300, "comps": 20}, "neighbors": {"cells": 300, "k": 15}, "leiden": {"cells": 300},
+               "cnv_score": {"cells": 300}, "umap": {"cells": 300}}
+CHAIN_CHILDREN = {"neighbors.knn": "neighbors", "neighbors.connectivities": "neighbors", "umap.init": "umap",
+                  "umap.epochs": "umap"}
+
+
+def _chain_input():
+    """A fresh AnnData holding a 300 × 40 CSR ``X_cnv`` of three groups."""
+    import pandas as pd
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(3)
+    centres = rng.normal(scale=3.0, size=(3, 40))
+    x = centres[np.repeat(np.arange(3), 100)] + rng.normal(size=(300, 40))
+    x[np.abs(x) < 1.0] = 0.0
+    obs = pd.DataFrame({"cell_type": np.repeat(["a", "b", "c"], 100)}, index=[f"c{i}" for i in range(300)])
+    return tcnv.AnnData(obs=obs, obsm={"X_cnv": sp.csr_matrix(x.astype(np.float32))})
+
+
+def _chain(adata):
+    tcnv.tl.pca(adata, device="cpu", n_comps=20)
+    tcnv.pp.neighbors(adata, device="cpu")
+    tcnv.tl.leiden(adata)
+    tcnv.tl.cnv_score(adata, device="cpu")
+    tcnv.tl.umap(adata, device="cpu", n_epochs=20)
+
+
+def test_chain_spans_and_counters_under_trace(tmp_path):
+    from infercnvpy_tpu_torch.ops.umap_ import _select_edges
+
+    adata = _chain_input()
+    with profiling.trace(tmp_path):
+        _chain(adata)
+    found = profiling.last_spans
+    roots = {s.name: s for s in found if s.parent is None}
+    assert list(roots) == list(CHAIN_ROOTS)
+    assert {name: s.attrs for name, s in roots.items()} == CHAIN_ROOTS
+    kids = {s.name: s for s in found if s.parent is not None}
+    assert set(kids) == set(CHAIN_CHILDREN)
+    for name, root in CHAIN_CHILDREN.items():
+        assert kids[name].parent == roots[root].id and kids[name].call == roots[root].id
+        assert roots[root].start <= kids[name].start <= kids[name].end <= roots[root].end
+    assert kids["neighbors.knn"].counts == {"knn_flops": 2 * 300 * 300 * 20}
+    assert roots["leiden"].counts == {"leiden_communities": adata.obs["cnv_leiden"].nunique()}
+    edges = len(_select_edges(adata.obsp["cnv_neighbors_connectivities"].tocoo(), 20)[0])
+    assert kids["umap.epochs"].counts == {"umap_edges": edges} and edges > 300
+    assert {e["name"] for e in _program_spans(tmp_path)} == set(CHAIN_ROOTS) | set(CHAIN_CHILDREN)
+
+
+@pytest.mark.parametrize("block,shards", [(4096, 1), (64, 1), (64, 3)])
+def test_knn_flops_is_two_n_squared_d(tmp_path, block, shards):
+    from infercnvpy_tpu_torch.ops.knn import exact_knn
+
+    x = np.random.default_rng(0).normal(size=(250, 12)).astype(np.float32)
+    with profiling.trace(tmp_path), profiling.span("root"):
+        exact_knn(x, 15, block=block, device=["cpu"] * shards if shards > 1 else "cpu")
+    assert [s.counts for s in profiling.last_spans] == [{"knn_flops": 2 * 250 * 250 * 12}]
+
+
+def test_the_untraced_chain_records_nothing(tmp_path):
+    with profiling.trace(tmp_path), profiling.span("before"):
+        pass
+    kept, records = list(profiling.last_spans), len(profiling._records)
+    _chain(_chain_input())
+    assert profiling.last_spans == kept and len(profiling._records) == records
+    assert profiling.current() is None
