@@ -17,9 +17,10 @@ references the tests hold these against.
 Every packer wrapper checks dtypes, shapes and index bounds before it passes
 a pointer (the C scatters are unchecked; ``count_in_columns`` checks each
 column id itself before it reads the flag), runs on ``torch.get_num_threads()``
-OpenMP threads, releases the GIL for the call (ctypes does), counts its calls
-in ``.calls``, and can write into caller-owned ``out`` buffers, such as
-pinned host memory, which it overwrites completely.
+OpenMP threads (``mask_to_csr`` on ``threads`` when given), releases the GIL
+for the call (ctypes does), counts its calls in ``.calls``, and can write into
+caller-owned ``out`` buffers, such as pinned host memory, which it overwrites
+completely (``mask_to_csr`` writes only its rows' slots of the call's arrays).
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ _SIGNATURES = {
     "dense_nnz_rows": (None, (_P, _I64, _I64, _I64P, _I32)),
     # src, n_rows, n_cols, indptr, indices, data, n_threads
     "dense_fill_csr": (None, (_P, _I64, _I64, _I64P, _I32P, _P, _I32)),
+    # mask_ptrs, val_ptrs, seg_rows, seg_nnz, n_seg, n_words, n_windows, cap, indptr, indices, data, n_threads
+    "mask_to_csr": (_I64, (_P, _P, _I64P, _I64P, _I64, _I64, _I64, _I64, _I64P, _I32P, _P, _I32)),
 }
 _SUFFIX = {np.dtype(np.float32): "f32", np.dtype(np.float64): "f64"}
 
@@ -272,6 +275,62 @@ def dense_to_csr(arr) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 dense_to_csr.calls = 0
+
+
+def mask_to_csr(masks, vals, seg_nnz, n_windows: int, indptr, indices, data, *, row: int = 0,
+                threads: int | None = None) -> int:
+    """The result pack's word masks and compacted values -> CSR rows, written into caller-owned arrays.
+
+    ``masks[s]`` is shard ``s``'s (rows, ceil(n_windows / 32)) uint32 word
+    mask (bit ``k`` of word ``j`` marks window ``32 j + k``; bits at or past
+    ``n_windows`` are ignored) and ``vals[s]`` its compacted values, of which
+    the first ``seg_nnz[s]`` are real; the shards' rows follow one another.
+    The rows' ends go to ``indptr[row + 1 : row + rows + 1]`` (int64, offsets
+    into the whole arrays, continuing from ``indptr[row]``) and their column
+    ids and values to ``indices`` (int32) and ``data`` from ``indptr[row]`` on.
+    The arrays it writes equal ``ops.result_pack.sharded_mask_vals_to_csr``'s
+    (``mask_vals_to_csr``'s for one shard), shifted by the offsets.  Runs on
+    ``threads`` OpenMP threads (default torch's count); returns the values
+    written.
+    """
+    if indptr.dtype != np.int64 or indices.dtype != np.int32 or data.dtype not in _SUFFIX \
+            or not (indptr.flags.c_contiguous and indices.flags.c_contiguous and data.flags.c_contiguous) \
+            or indptr.ndim != 1 or indices.shape != data.shape or indices.ndim != 1:
+        raise ValueError("indptr (int64), indices (int32) and data (float32 / float64 of indices' length) must be "
+                         "C-contiguous 1-D arrays")
+    n_words = -(-int(n_windows) // 32)
+    seg_rows = np.array([m.shape[0] for m in masks], dtype=np.int64)
+    seg_nnz = np.ascontiguousarray(seg_nnz, dtype=np.int64)
+    if len(masks) != len(vals) or len(seg_nnz) != len(masks):
+        raise ValueError(f"{len(masks)} masks, {len(vals)} value arrays and {len(seg_nnz)} counts")
+    for m, v, k in zip(masks, vals, seg_nnz):
+        if m.dtype != np.uint32 or m.ndim != 2 or m.shape[1] != n_words or not m.flags.c_contiguous:
+            raise ValueError(f"a mask must be a C-contiguous (rows, {n_words}) uint32 array, got {m.dtype} {m.shape}")
+        if v.dtype != data.dtype or v.ndim != 1 or not v.flags.c_contiguous or not 0 <= k <= len(v):
+            raise ValueError(f"values must be C-contiguous 1-D {data.dtype} holding their count {k}, "
+                             f"got {v.dtype} {v.shape}")
+    rows = int(seg_rows.sum())
+    if row < 0 or row + rows + 1 > len(indptr):
+        raise ValueError(f"rows {row}..{row + rows} past indptr of length {len(indptr)}")
+    total = int(seg_nnz.sum())
+    if int(indptr[row]) + total > len(indices):
+        raise ValueError(f"{total} values from offset {int(indptr[row])} pass the arrays' length {len(indices)}")
+    threads = _threads() if threads is None else int(threads)
+    mask_ptrs = np.array([m.ctypes.data for m in masks], dtype=np.uint64)
+    val_ptrs = np.array([v.ctypes.data for v in vals], dtype=np.uint64)
+    fn = getattr(library(), f"mask_to_csr_{_SUFFIX[data.dtype]}")
+    n = fn(mask_ptrs.ctypes.data, val_ptrs.ctypes.data, seg_rows.ctypes.data_as(_I64P),
+           seg_nnz.ctypes.data_as(_I64P), len(masks), n_words, int(n_windows), len(indices),
+           indptr[row:].ctypes.data_as(_I64P), indices.ctypes.data_as(_I32P), data.ctypes.data, max(1, threads))
+    if n == -1:
+        raise ValueError("a mask's bits do not count its shard's values")
+    if n < 0:  # pragma: no cover - the capacity is checked above
+        raise ValueError("the values pass the arrays' length")
+    mask_to_csr.calls += 1
+    return int(n)
+
+
+mask_to_csr.calls = 0
 
 
 def count_in_columns(indices, keep) -> int:

@@ -1,11 +1,12 @@
 // Host packers of the infercnv pipeline, in C++ with OpenMP, loaded via ctypes.
 //
-// The port's own copy of infercnvpy_tpu/native/pack.cpp, with three changes:
+// The port's own copy of infercnvpy_tpu/native/pack.cpp, with four changes:
 // every entry point takes its OpenMP thread count (the Python side passes
 // torch's intra-op count, so a process that pins torch to one thread pins
 // the packer too); the dense packers zero each output row themselves, so
 // they can write into a reused (pinned) buffer instead of a fresh calloc'ed
-// one; and f64 variants exist of the COO remap and the dense-to-CSR scan.
+// one; f64 variants exist of the COO remap and the dense-to-CSR scan; and
+// the result pack's host assembly (mask_to_csr) is native here, numpy there.
 //
 // Stages (reference: tl/_infercnv.py:115-137, 419 — the per-worker densify):
 //   pack_csr_*    CSR rows -> dense rows in the plan's packed column layout
@@ -13,6 +14,9 @@
 //   coo_remap_*   CSR rows -> compact (cols, vals, counts) for the device
 //                 densify, optionally with the values rounded to bfloat16
 //   dense_*_csr_* dense result block -> CSR (a counting pass, then a fill)
+//   mask_to_csr_* the result pack's word masks and compacted values -> CSR
+//                 rows, written into the call's arrays at a row and value
+//                 offset (a popcount a row, a prefix sum, then a fill)
 //   count_in_columns  the nonzeros of a CSR range that lie in marked columns
 //                 (a batch's upload capacity when genes are left out)
 //
@@ -144,6 +148,82 @@ void dense_fill_csr(const T* src, int64_t n_rows, int64_t n_cols, const int64_t*
   }
 }
 
+// Set bits of a word, without a call into libgcc (the build targets no popcnt instruction).
+inline int64_t bit_count(uint32_t v) {
+  v = v - ((v >> 1) & 0x55555555u);
+  v = (v & 0x33333333u) + ((v >> 2) & 0x33333333u);
+  return static_cast<int64_t>((((v + (v >> 4)) & 0x0f0f0f0fu) * 0x01010101u) >> 24);
+}
+
+// Shard s holds seg_rows[s] rows of n_words mask words (bit k of word j:
+// window 32j + k) and seg_nnz[s] values; the shards' rows follow one
+// another.  indptr points at the batch's first row in the call's indptr:
+// indptr[0] is the value offset, the rows' ends go to indptr[1 ..], and the
+// rows' column ids and values to indices / data from indptr[0] on.  Bits at or
+// past n_windows are ignored.  Returns the values written; -1 if a shard's
+// bits do not count its values, -2 if they would pass cap (the length of
+// indices and data): then nothing is written to indices or data.
+template <typename T>
+int64_t mask_to_csr(const uint64_t* mask_ptrs, const uint64_t* val_ptrs, const int64_t* seg_rows,
+                    const int64_t* seg_nnz, int64_t n_seg, int64_t n_words, int64_t n_windows, int64_t cap,
+                    int64_t* indptr, int32_t* indices, T* data, int32_t n_threads) {
+  const uint32_t tail = (n_windows % 32) ? ((1u << (n_windows % 32)) - 1u) : 0xffffffffu;
+  int64_t fault = 0;
+#pragma omp parallel num_threads(n_threads)
+  {
+    int64_t row0 = 0;
+    for (int64_t s = 0; s < n_seg; ++s) {
+      const uint32_t* mask = reinterpret_cast<const uint32_t*>(mask_ptrs[s]);
+#pragma omp for schedule(static) nowait
+      for (int64_t r = 0; r < seg_rows[s]; ++r) {
+        const uint32_t* w = mask + r * n_words;
+        int64_t k = 0;
+        for (int64_t j = 0; j + 1 < n_words; ++j) k += bit_count(w[j]);
+        if (n_words > 0) k += bit_count(w[n_words - 1] & tail);
+        indptr[row0 + r + 1] = k;
+      }
+      row0 += seg_rows[s];
+    }
+#pragma omp barrier
+#pragma omp single
+    {
+      int64_t row = 0;
+      for (int64_t s = 0; s < n_seg && !fault; ++s) {
+        const int64_t first = indptr[row];
+        for (int64_t r = 0; r < seg_rows[s]; ++r, ++row) indptr[row + 1] += indptr[row];
+        if (indptr[row] - first != seg_nnz[s]) fault = -1;
+      }
+      if (!fault && indptr[row] > cap) fault = -2;
+    }
+    if (!fault) {
+      row0 = 0;
+      for (int64_t s = 0; s < n_seg; ++s) {
+        const uint32_t* mask = reinterpret_cast<const uint32_t*>(mask_ptrs[s]);
+        const T* vals = reinterpret_cast<const T*>(val_ptrs[s]);
+        const int64_t first = indptr[row0];
+#pragma omp for schedule(static) nowait
+        for (int64_t r = 0; r < seg_rows[s]; ++r) {
+          const int64_t lo = indptr[row0 + r];
+          std::memcpy(data + lo, vals + (lo - first), sizeof(T) * (indptr[row0 + r + 1] - lo));
+          const uint32_t* w = mask + r * n_words;
+          int32_t* out = indices + lo;
+          for (int64_t j = 0; j < n_words; ++j) {
+            uint32_t bits = (j + 1 < n_words) ? w[j] : (w[j] & tail);
+            while (bits) {
+              *out++ = static_cast<int32_t>(32 * j + __builtin_ctz(bits));
+              bits &= bits - 1;
+            }
+          }
+        }
+        row0 += seg_rows[s];
+      }
+    }
+  }
+  int64_t rows = 0;
+  for (int64_t s = 0; s < n_seg; ++s) rows += seg_rows[s];
+  return fault ? fault : indptr[rows] - indptr[0];
+}
+
 }  // namespace
 
 extern "C" {
@@ -198,6 +278,20 @@ void dense_fill_csr_f32(const float* src, int64_t n_rows, int64_t n_cols, const 
 void dense_fill_csr_f64(const double* src, int64_t n_rows, int64_t n_cols, const int64_t* indptr, int32_t* indices,
                         double* data, int32_t n_threads) {
   dense_fill_csr(src, n_rows, n_cols, indptr, indices, data, n_threads);
+}
+
+int64_t mask_to_csr_f32(const uint64_t* mask_ptrs, const uint64_t* val_ptrs, const int64_t* seg_rows,
+                        const int64_t* seg_nnz, int64_t n_seg, int64_t n_words, int64_t n_windows, int64_t cap,
+                        int64_t* indptr, int32_t* indices, float* data, int32_t n_threads) {
+  return mask_to_csr(mask_ptrs, val_ptrs, seg_rows, seg_nnz, n_seg, n_words, n_windows, cap, indptr, indices, data,
+                     n_threads);
+}
+
+int64_t mask_to_csr_f64(const uint64_t* mask_ptrs, const uint64_t* val_ptrs, const int64_t* seg_rows,
+                        const int64_t* seg_nnz, int64_t n_seg, int64_t n_words, int64_t n_windows, int64_t cap,
+                        int64_t* indptr, int32_t* indices, double* data, int32_t n_threads) {
+  return mask_to_csr(mask_ptrs, val_ptrs, seg_rows, seg_nnz, n_seg, n_words, n_windows, cap, indptr, indices, data,
+                     n_threads);
 }
 
 // How many of the n column ids in `indices` lie in a column that `keep`

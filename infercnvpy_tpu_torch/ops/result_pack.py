@@ -13,8 +13,11 @@ and scipy CSR is rebuilt on the host straight from the mask (bit positions
 are the column indices), bit-identical to CSR-ifying the dense matrix.  On
 cell shards (``parallel``) each shard masks and compacts its own rows into
 its own ``cap`` slots (:func:`sharded_mask_nnz`, :func:`sharded_compact`),
-and the host joins the segments in shard order
-(:func:`sharded_mask_vals_to_csr`).
+and the host joins the segments in shard order.  ``tl.infercnv`` rebuilds
+the CSR in native code (``native.mask_to_csr``, reading each shard's mask and
+segment where they were downloaded); :func:`mask_vals_to_csr` and
+:func:`sharded_mask_vals_to_csr` are the plain versions the tests hold it
+against.
 """
 
 from __future__ import annotations

@@ -27,8 +27,12 @@ attr ``on`` saying for what (``"pack"``, ``"copies"``, ``"compute"``, and on
 the packer thread ``"memory"``: a batch's copy waits until the previous
 batch's compute has returned its device memory).  Its
 counters: ``pinned_bytes`` (pinned host memory allocated), ``h2d_bytes``,
-``d2h_bytes``, ``gene_d2h_bytes`` and ``subset_copy_bytes`` (expression
-bytes copied to select genes or change the sparse format).
+``d2h_bytes``, ``gene_d2h_bytes``, ``subset_copy_bytes`` (expression
+bytes copied to select genes or change the sparse format), and in
+``infercnv.csr`` (attr ``threads``: the threads that assembled the batch)
+``csr_nnz`` (values the native fill ``native.mask_to_csr`` wrote) and
+``csr_copied_bytes`` (bytes copied to join a batch into the call's CSR
+arrays or to regrow them).
 
 The downstream entry points open a root span each, with attrs ``cells``
 and, where it applies, ``comps`` or ``k``: ``pca`` (``tl.pca``),

@@ -15,7 +15,8 @@ API and numerics contract follow the reference entry point
   batching;
 * sparse input ships its CSR arrays and densifies on the device
   (``device_densify``); the gated result comes back as a bitmask plus the
-  surviving values (``compress_results``);
+  surviving values (``compress_results``), which native code turns into CSR
+  rows in place in the call's result arrays (``native.mask_to_csr``);
 * ``calculate_gene_values=True`` adds the per-gene matrix
   (``ops.gene.gene_project``, on a CUDA device in f32 through the gene
   kernel), fetched the same way and scattered back to the var axis with NaN
@@ -157,8 +158,8 @@ def infercnv(
     the rest that ``profiling`` lists, ``infercnv.wait`` wherever a thread
     blocks (its ``on``: ``"pack"``, ``"copies"``, ``"compute"`` or
     ``"memory"``), and the
-    counters ``pinned_bytes``, ``h2d_bytes``, ``d2h_bytes`` and
-    ``subset_copy_bytes``.
+    counters ``pinned_bytes``, ``h2d_bytes``, ``d2h_bytes``,
+    ``subset_copy_bytes``, ``csr_nnz`` and ``csr_copied_bytes``.
 
     The genes are selected without a copy: the packers read the expression
     matrix in place through the kept genes' column positions.  Sparse input
@@ -440,10 +441,10 @@ def _batch_file(ckpt: Path, start: int) -> Path:
     return ckpt / f"batch_{start:010d}.npz"
 
 
-def _save_batch(ckpt: Path, start: int, mat: sp.csr_matrix, gene: np.ndarray | None) -> None:
-    """Write one finished batch atomically (temporary file, then rename)."""
-    payload = {"data": mat.data, "indices": mat.indices, "indptr": mat.indptr,
-               "shape": np.asarray(mat.shape, np.int64)}
+def _save_batch(ckpt: Path, start: int, csr: tuple, shape: tuple, gene: np.ndarray | None) -> None:
+    """Write one finished batch, its CSR ``(data, indices, indptr)``, atomically (temporary file, then rename)."""
+    data, indices, indptr = csr
+    payload = {"data": data, "indices": indices, "indptr": indptr, "shape": np.asarray(shape, np.int64)}
     if gene is not None:
         payload["gene"] = gene
     tmp = ckpt / f"batch_{start:010d}.npz.tmp"
@@ -575,6 +576,112 @@ def _host_rows(parts: list[torch.Tensor]) -> np.ndarray:
     return parts[0].numpy() if len(parts) == 1 else np.concatenate([p.numpy() for p in parts])
 
 
+class _CallCsr:
+    """A call's CSR result in one ``indptr`` / ``indices`` / ``data`` each, filled batch by batch in row order.
+
+    Each batch writes its rows at its row offset and its values after the
+    previous batch's: a packed result straight from the download buffers
+    (``native.mask_to_csr``), any other batch's CSR arrays copied in.
+    ``indices`` and ``data`` are sized from the values seen so far, spread
+    over the call's rows with room to spare (pages never written cost no
+    memory), and grow by at least half when a batch would pass them;
+    :meth:`matrix` trims them in place.  The fill methods return the bytes
+    they copied to join a batch or to regrow (``csr_copied_bytes``).
+    """
+
+    #: room over the estimated total
+    SLACK = 1.25
+
+    def __init__(self, n_rows: int, n_cols: int, dtype):
+        self.shape = (n_rows, n_cols)
+        self.indptr = np.zeros(n_rows + 1, dtype=np.int64)
+        self.indices = np.empty(0, dtype=np.int32)
+        self.data = np.empty(0, dtype=dtype)
+        self.rows = 0  # rows filled
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[self.rows])
+
+    def _reserve(self, rows: int, nnz: int) -> int:
+        """Room for ``rows`` more rows holding ``nnz`` values; returns the bytes copied to regrow."""
+        need = self.nnz + nnz
+        cap = len(self.indices)
+        if need <= cap:
+            return 0
+        estimate = self.SLACK * need / (self.rows + rows) * self.shape[0]
+        new = max(need, min(int(estimate), self.shape[0] * self.shape[1]), cap + cap // 2)
+        filled = self.nnz
+        indices = np.empty(new, dtype=np.int32)
+        data = np.empty(new, dtype=self.data.dtype)
+        indices[:filled] = self.indices[:filled]
+        data[:filled] = self.data[:filled]
+        self.indices, self.data = indices, data
+        return filled * (indices.itemsize + data.itemsize)
+
+    def put_packed(self, masks: list, vals: list, seg_nnz, threads: int) -> tuple[int, int]:
+        """A packed batch (the shards' word masks and value segments); returns ``(values written, bytes copied)``."""
+        from .. import native
+
+        rows = sum(m.shape[0] for m in masks)
+        copied = self._reserve(rows, int(sum(seg_nnz)))
+        n = native.mask_to_csr(masks, vals, seg_nnz, self.shape[1], self.indptr, self.indices, self.data,
+                               row=self.rows, threads=threads)
+        self.rows += rows
+        return n, copied
+
+    def put(self, data: np.ndarray, indices: np.ndarray, indptr: np.ndarray) -> int:
+        """A batch's own CSR arrays (``indptr`` from 0), copied in; returns the bytes copied."""
+        rows, nnz = len(indptr) - 1, int(indptr[-1])
+        copied = self._reserve(rows, nnz)
+        lo = self.nnz
+        self.indices[lo : lo + nnz] = indices[:nnz]
+        self.data[lo : lo + nnz] = data[:nnz]
+        ends = self.indptr[self.rows + 1 : self.rows + rows + 1]
+        ends[:] = indptr[1:]
+        ends += lo
+        self.rows += rows
+        return copied + nnz * (indices.itemsize + data.itemsize) + rows * indptr.itemsize
+
+    def batch(self, lo: int, hi: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Rows ``lo:hi`` as a CSR of their own, ``indptr`` from 0: a batch's exact arrays, for its checkpoint."""
+        v0, v1 = int(self.indptr[lo]), int(self.indptr[hi])
+        return self.data[v0:v1], *_index_dtypes(self.indices[v0:v1], self.indptr[lo : hi + 1] - v0)
+
+    def matrix(self) -> sp.csr_matrix:
+        """The filled rows as the call's result, ``indices`` and ``data`` trimmed in place to the values."""
+        nnz = self.nnz
+        # the trim shrinks each allocation (realloc) without a copy; nothing else refers to the arrays
+        self.indices.resize(nnz, refcheck=False)
+        self.data.resize(nnz, refcheck=False)
+        indices, indptr = _index_dtypes(self.indices, self.indptr)
+        return sp.csr_matrix((self.data, indices, indptr), shape=self.shape)
+
+
+#: values a thread of the native CSR fill (``native.mask_to_csr``) takes on before another joins
+_CSR_GRAIN = 1 << 15
+
+
+def _csr_fill_threads(nnz: int, beside_packer: bool) -> int:
+    """Threads for the native CSR fill of ``nnz`` values: one a :data:`_CSR_GRAIN` values, up to torch's count.
+
+    While the packer thread's OpenMP team, of torch's count, packs a next
+    batch beside the fill (``beside_packer``), at most half of it: two whole
+    teams would oversubscribe the host.
+    """
+    cap = max(1, torch.get_num_threads())
+    if beside_packer:
+        cap = max(1, cap // 2)
+    return max(1, min(cap, int(nnz) // _CSR_GRAIN))
+
+
+def _index_dtypes(indices: np.ndarray, indptr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(indices, indptr)`` in one index dtype, as scipy needs: int32 while the values fit it, else int64."""
+    if int(indptr[-1]) < 2**31 - 1:
+        return indices, indptr.astype(np.int32)
+    return indices.astype(np.int64), indptr  # pragma: no cover - more than 2^31 values
+
+
 _TORCH_INT = {np.dtype(np.uint16): torch.uint16, np.dtype(np.int32): torch.int32}
 
 
@@ -613,7 +720,8 @@ def _infercnv_compute(
     ``stats`` (optional) — a dict that receives a per-stage breakdown:
     ``host_pack_sec``, ``h2d_sec``, ``h2d_bytes``, ``compute_sec``,
     ``d2h_sec``, ``d2h_bytes`` (the window matrix), ``csr_sec`` (with the
-    checkpoint writes), ``compile_sec`` (building and loading the native
+    checkpoint writes), ``csr_nnz`` and ``csr_copied_bytes`` (the counters of
+    :class:`_CallCsr`'s fill), ``compile_sec`` (building and loading the native
     packer and the CUDA kernels), ``mode``, ``result_pack`` and, when set,
     ``transfer_dtype``; with gene values also ``gene_d2h_bytes`` (inside
     ``d2h_sec``), ``gene_unpack_sec`` (bitmask to dense on the host) and
@@ -716,10 +824,7 @@ def _infercnv_compute(
 
         if compute_starts:
             from .. import native
-            from ..ops.result_pack import (
-                _shard_local_valid, mask_vals_to_csr, round_result_cap, sharded_compact, sharded_mask_nnz,
-                sharded_mask_vals_to_csr,
-            )
+            from ..ops.result_pack import _shard_local_valid, round_result_cap, sharded_compact, sharded_mask_nnz
             from ..ops.sparse_ingest import coo_from_csr_batch, col_index_dtype, densify, round_nnz_cap
 
             # the transform is built only here: a run whose every batch resumes
@@ -795,14 +900,16 @@ def _infercnv_compute(
         else:
             info(msg)
 
-    res_parts = []
+    out = _CallCsr(n_cells, plan.n_windows, np_cdtype)
     gene_parts = []
 
     def _load_batch(start):
         with profiling.span("infercnv.resume"), np.load(_batch_file(ckpt, start)) as z:
-            res_parts.append(sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"])))
+            part = z["data"], z["indices"], z["indptr"]
             if gpd is not None:
                 gene_parts.append(z["gene"])
+        with stage("infercnv.csr", "csr_sec", threads=1):
+            count("csr_copied_bytes", out.put(*part))
 
     if compute_starts:
         def _prepare(start, parent=None, after=None):
@@ -892,15 +999,25 @@ def _infercnv_compute(
             count(bytes_key, sum(t.numel() * t.element_size() for ts in arrays.values() for t in ts))
             return ("packed", host["mask"], host["vals"], payload[3]) if packed else ("dense", host["dense"])
 
-        def _unpack_csr(host, n_cols: int) -> sp.csr_matrix:
+        def _fill_threads(host) -> int:
+            """The threads that turn a batch's host result into CSR: the native fill's, or the dense scan's.
+
+            The packer is busy beside the fill while a next batch is submitted to it and not yet taken.
+            """
+            if host[0] == "packed":
+                return _csr_fill_threads(sum(host[3]), beside_packer=bool(futures))
+            return max(1, torch.get_num_threads())
+
+        def _fill(host, csr: _CallCsr, threads: int) -> tuple[int, int]:
+            """One batch's host result into ``csr``, a packed one in place in native code.
+
+            Returns ``(values the native fill wrote, bytes copied)``.
+            """
             if host[0] == "packed":
                 _, masks, vals, nnz = host
-                mask = _host_rows(masks).view(np.uint32)
-                if len(vals) == 1:
-                    return mask_vals_to_csr(mask, vals[0].numpy()[: nnz[0]], n_cols)
-                return sharded_mask_vals_to_csr(mask, _host_rows(vals), nnz, n_cols)
-            dense = _host_rows(host[1])
-            return sp.csr_matrix(native.dense_to_csr(dense), shape=dense.shape)
+                return csr.put_packed([m.numpy().view(np.uint32) for m in masks], [v.numpy() for v in vals], nnz,
+                                      threads)
+            return 0, csr.put(*native.dense_to_csr(_host_rows(host[1])))
 
         def _materialize(pending):
             """Host half of one finished batch: wait for its copies, assemble, checkpoint."""
@@ -909,9 +1026,12 @@ def _infercnv_compute(
                 with profiling.span("infercnv.wait", on="copies"):
                     for event in events:
                         event.synchronize()
-            with stage("infercnv.csr", "csr_sec"):
-                mat = _unpack_csr(x_host, plan.n_windows)
-                res_parts.append(mat)
+            row0 = out.rows
+            threads = _fill_threads(x_host)
+            with stage("infercnv.csr", "csr_sec", threads=threads):
+                written, copied = _fill(x_host, out, threads)
+                count("csr_nnz", written)
+                count("csr_copied_bytes", copied)
             g_np = None
             if g_host is not None:
                 with stage("infercnv.gene_unpack", "gene_unpack_sec"):
@@ -920,11 +1040,13 @@ def _infercnv_compute(
                     if g_host[0] == "dense":
                         g_np = np.concatenate([p.numpy() for p in g_host[1]])
                     else:
-                        g_np = _unpack_csr(g_host, gpd.total).toarray()
+                        genes = _CallCsr(out.rows - row0, gpd.total, np_cdtype)
+                        _fill(g_host, genes, _fill_threads(g_host))
+                        g_np = genes.matrix().toarray()
                     gene_parts.append(g_np)
             if ckpt is not None:
                 with stage("infercnv.checkpoint", "csr_sec"):
-                    _save_batch(ckpt, start, mat, g_np)
+                    _save_batch(ckpt, start, out.batch(row0, out.rows), (out.rows - row0, plan.n_windows), g_np)
 
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="infercnv-pack") if use_prefetch else None
     futures: dict = {}
@@ -982,7 +1104,7 @@ def _infercnv_compute(
             pool.shutdown(wait=True, cancel_futures=True)
 
     with profiling.span("infercnv.stack"):
-        res = sp.vstack(res_parts, format="csr") if len(res_parts) > 1 else res_parts[0]
+        res = out.matrix()
     per_gene = None
     if gpd is not None:
         with stage("infercnv.gene_scatter", "gene_scatter_sec"):

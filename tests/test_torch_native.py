@@ -273,8 +273,9 @@ def test_library_is_built_under_a_source_hash():
         (sp.csr_matrix, {"device_densify": False}, "pack_csr"),
         (np.asarray, {}, "pack_dense"),
         (sp.csr_matrix, {"compress_results": False}, "dense_to_csr"),
+        (sp.csr_matrix, {"window_size": 21, "step": 2}, "mask_to_csr"),
     ],
-    ids=["sparse", "host_pack_csr", "dense", "dense_fetch"],
+    ids=["sparse", "host_pack_csr", "dense", "dense_fetch", "packed"],
 )
 def test_infercnv_runs_the_native_packers(rep, kw, packer):
     import infercnvpy_tpu_torch as tcnv

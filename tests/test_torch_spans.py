@@ -155,6 +155,37 @@ def test_infercnv_stage_spans_on_every_thread(tmp_path):
     assert {e["name"] for e in _program_spans(tmp_path / "trace")} == STAGES
 
 
+def test_infercnv_csr_spans_carry_the_fill_and_its_copies(tmp_path):
+    """One ``infercnv.csr`` a batch, carrying its fill's thread count; ``csr_nnz`` counts the values the native
+    fill wrote, all of ``X_cnv``'s on a packed call; ``csr_copied_bytes`` is 0 on a plain multi-batch call and
+    counts the resumed batches' copies."""
+    import infercnvpy_tpu_torch.tl._infercnv as drv
+
+    adata = _dataset()
+    kw = dict(KW, window_size=21, step=2)  # 172 windows: each batch comes packed
+    ckpt = tmp_path / "ckpt"
+    with profiling.trace(tmp_path / "trace"):
+        tcnv.tl.infercnv(adata, **kw)  # three batches
+        want = adata.obsm["X_cnv"]
+        tcnv.tl.infercnv(adata, **kw, checkpoint_dir=ckpt)
+        next(iter(sorted(ckpt.glob("batch_*.npz")))).unlink()
+        tcnv.tl.infercnv(adata, **kw, checkpoint_dir=ckpt)  # resumes two of three
+    found = profiling.last_spans
+    roots = [s for s in found if s.parent is None]
+    csr = [[s for s in found if s.name == "infercnv.csr" and s.call == r.id] for r in roots]
+    assert [len(spans) for spans in csr] == [3, 3, 3]
+    for spans in csr[:2]:
+        assert sum(s.counts["csr_nnz"] for s in spans) == want.nnz > 0
+        assert sum(s.counts["csr_copied_bytes"] for s in spans) == 0
+        # the packer prepares the third batch while the first is filled, then has nothing left to pack
+        assert [s.attrs for s in spans] == [{"threads": drv._csr_fill_threads(s.counts["csr_nnz"], beside)}
+                                            for s, beside in zip(spans, (True, False, False))]
+    resumed = [s for s in csr[2] if "csr_nnz" not in s.counts]
+    assert len(resumed) == 2 and all(s.counts["csr_copied_bytes"] > 0 and s.attrs == {"threads": 1} for s in resumed)
+    assert sum(s.counts.get("csr_nnz", 0) for s in csr[2]) == csr[0][0].counts["csr_nnz"]
+    assert (adata.obsm["X_cnv"] != want).nnz == 0
+
+
 def test_infercnv_h2d_bytes_counter_equals_the_stage_clock(tmp_path):
     adata = _dataset()
     with profiling.trace(tmp_path):
