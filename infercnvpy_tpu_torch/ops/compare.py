@@ -1,6 +1,6 @@
 """Time this tree's kernels against another checkout's, in turns, on one card.
 
-    python -m infercnvpy_tpu_torch.ops.compare --parent DIR [--sweep] [--smoke N] [--e2e [CASE ...]] [--no-kernels]
+    python -m infercnvpy_tpu_torch.ops.compare [--parent DIR] [--sweep]
 
 ``DIR`` is the root of another checkout of the repository whose kernels have
 the C interface of :data:`PARENT_SIGNATURES` (commit 1453ff3's: K1, K3, K6
@@ -33,19 +33,7 @@ device and on the host.
 columns) at 32 to 1,024 threads a block through their C entry points, then K3
 and K1 through their wrappers (the warp kernels' warps a block are a
 constant of their source: ``ops/variants.py``'s ``warp_*_warps`` time other
-counts).  ``--smoke N`` runs ``chip_smoke.py``'s kernel phases (3 and 7) N
-times and prints each run's K1-K5 times.
-``--e2e [CASE ...]`` runs the named cases (all of
-:data:`E2E_CASES` without names) from both trees, in the same order, one
-process per turn: ``tl.infercnv`` on the 102,400-cell and the 30,000-cell
-gene inputs of ``chip_smoke.py``, the downstream chain of its phase 9b
-(``tl.pca`` → ``pp.neighbors`` → ``tl.leiden`` → ``tl.cnv_score`` →
-``tl.umap``) on the 102,400-cell ``X_cnv``, and the plain pipeline's paths:
-``tl.infercnv`` on float64 input on the card (the plain pipeline in float64)
-and on the CPU in float32 and float64 at 20,480 cells, and the plain version
-of K1 at 16,384 rows in float32 and float64 on the card.  ``--no-kernels``
-skips the kernel comparison.  Prints one JSON line per measurement; needs a
-CUDA device.
+counts).  Prints one JSON line per measurement; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -81,79 +69,6 @@ PARENT_SIGNATURES = {
     "write_probe_launch": (_P, _P, _I, _I, _I, _I, _P),
 }
 PARENT_THREADS = 256  #: the parent's ``ops/select.py::THREADS``
-
-E2E_SNIPPET = """
-import json, sys, time
-import numpy as np, pandas as pd, torch
-import chip_smoke as cs
-import infercnvpy_tpu_torch as tcnv
-n_cells, gene_values, runs, chain = int(sys.argv[1]), sys.argv[2] == "1", int(sys.argv[3]), sys.argv[4] == "1"
-dtype, device = sys.argv[5], sys.argv[6]
-var = cs.make_var(cs.N_GENES)
-expr = cs.make_csr(n_cells, cs.N_GENES, cs.DENSITY).astype(dtype)
-labels = np.array(["tumor"] * n_cells, dtype=object)
-labels[: cs.N_NORMAL // 2] = "normal_a"
-labels[cs.N_NORMAL // 2 : cs.N_NORMAL] = "normal_b"
-obs = pd.DataFrame({"cell_type": pd.Categorical(labels)}, index=[f"cell_{i}" for i in range(n_cells)])
-kw = dict(reference_key="cell_type", reference_cat=["normal_a", "normal_b"], device=device, inplace=False,
-          calculate_gene_values=gene_values)
-adata = tcnv.AnnData(X=expr, obs=obs, var=var)
-if chain:
-    tcnv.tl.infercnv(adata, **{**kw, "inplace": True})
-    # the first chain is a warm-up (it may build the Leiden library)
-    print(json.dumps([cs._downstream_chain(adata) for _ in range(runs + 1)][1:]))
-    sys.exit(0)
-tcnv.tl.infercnv(adata, **kw)
-torch.cuda.synchronize()
-walls = []
-for _ in range(runs):
-    t = time.perf_counter()
-    tcnv.tl.infercnv(adata, **kw)
-    torch.cuda.synchronize()
-    walls.append(time.perf_counter() - t)
-print(json.dumps(walls))
-"""
-
-PLAIN_K1_SNIPPET = """
-import json, sys
-import numpy as np, torch
-import chip_smoke as cs
-from infercnvpy_tpu_torch.genome import build_window_plan
-from infercnvpy_tpu_torch.ops.fused import fused_center_smooth_median_plain
-from infercnvpy_tpu_torch.ops.infercnv_kernel import packed_width
-rows, runs, dtype = int(sys.argv[1]), int(sys.argv[3]), getattr(torch, sys.argv[5])
-plan = build_window_plan(cs.make_var(cs.N_GENES), 100, 10)
-rng = np.random.default_rng(0)
-x = torch.from_numpy(rng.standard_normal((rows, packed_width(plan)))).to("cuda", dtype)
-ref2 = torch.from_numpy(np.sort(rng.standard_normal((2, packed_width(plan))) * 0.1, axis=0)).to("cuda", dtype)
-def call():
-    fused_center_smooth_median_plain(x, ref2, plan, lfc_clip=3.0, n_ref=2)
-call()
-ms = []
-for _ in range(runs):
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(10):
-        call()
-    b.record()
-    torch.cuda.synchronize()
-    ms.append(a.elapsed_time(b) / 10)
-print(json.dumps(ms))
-"""
-
-#: name -> (snippet, cells or rows, gene values, chain, dtype, device); the walls are seconds, the plain K1's ms
-E2E_CASES = {
-    "infercnv_102400": (E2E_SNIPPET, 102_400, "0", "0", "float32", "cuda"),
-    "infercnv_gene_30000": (E2E_SNIPPET, 30_000, "1", "0", "float32", "cuda"),
-    "downstream_102400": (E2E_SNIPPET, 102_400, "0", "1", "float32", "cuda"),
-    "infercnv_f64_102400": (E2E_SNIPPET, 102_400, "0", "0", "float64", "cuda"),
-    "infercnv_cpu_f32_20480": (E2E_SNIPPET, 20_480, "0", "0", "float32", "cpu"),
-    "infercnv_cpu_f64_20480": (E2E_SNIPPET, 20_480, "0", "0", "float64", "cpu"),
-    "plain_k1_f32_ms": (PLAIN_K1_SNIPPET, ROWS, "0", "0", "float32", "cuda"),
-    "plain_k1_f64_ms": (PLAIN_K1_SNIPPET, ROWS, "0", "0", "float64", "cuda"),
-}
-
 
 def _emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
@@ -449,50 +364,11 @@ def sweep(reps: int) -> None:
     fused.THREADS = keep
 
 
-def smoke_repeats(n: int) -> None:
-    """``chip_smoke.py``'s kernel phases (3 and 7) ``n`` times: each run's K1-K5 times, checks included."""
-    import chip_smoke as cs
-
-    for run in range(n):
-        rows = cs.phase_kernels() + cs.phase_select_kernels()
-        times = {row["name"]: {k: v for k, v in row.items() if k == "ms" or k.startswith("ms_")}
-                 | ({"wide_ms": row["wide"]["ms"]} if "wide" in row else {}) for row in rows}
-        _emit(smoke_run=run, ms=times)
-
-
-def compare_e2e(parent: Path, runs: int, names) -> None:
-    here = Path(__file__).resolve().parents[2]
-    for what in names or E2E_CASES:
-        snippet, n_cells, gene_values, chain, dtype, device = E2E_CASES[what]
-        walls = {"parent": [], "change": []}
-        for who in ("parent", "change", "change", "parent"):
-            root = parent if who == "parent" else here
-            out = subprocess.run(
-                [sys.executable, "-c", snippet, str(n_cells), gene_values, str(runs), chain, dtype, device],
-                cwd=root, capture_output=True, text=True, timeout=1500,
-            )
-            if out.returncode != 0:
-                raise RuntimeError(f"{who} {what} failed:\n{out.stderr[-4000:]}")
-            got = json.loads(out.stdout.strip().splitlines()[-1])
-            # a chain run's wall is the sum of its stages'
-            walls[who].append([sum(r.values()) for r in got] if chain == "1" else got)
-            if chain == "1":
-                _emit(e2e=what, who=who, stages_sec=got)
-        _emit(e2e=what, parent_wall_sec=walls["parent"], change_wall_sec=walls["change"],
-              parent_median=float(np.median(np.concatenate(walls["parent"]))),
-              change_median=float(np.median(np.concatenate(walls["change"]))))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="root of the checkout to compare with")
     ap.add_argument("--sweep", action="store_true", help="time this tree's kernels at other block sizes")
-    ap.add_argument("--e2e", nargs="*", choices=sorted(E2E_CASES), metavar="CASE",
-                    help="also compare these walls (every case without names): " + ", ".join(E2E_CASES))
-    ap.add_argument("--no-kernels", action="store_true", help="skip the kernel comparison")
-    ap.add_argument("--smoke", type=int, default=0, metavar="N", help="run chip_smoke.py's kernel phases N times")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--runs", type=int, default=3, help="timed tl.infercnv runs per process")
     args = ap.parse_args(argv)
 
     import torch
@@ -505,18 +381,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     _emit(card=smi, torch=torch.__version__, cuda=torch.version.cuda)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))  # chip_smoke's generators
-    if args.parent is not None and not args.no_kernels:
+    if args.parent is not None:
         with tempfile.TemporaryDirectory() as td:
             compare_kernels(build_parent(args.parent.resolve(), Path(td)), parent_select(args.parent.resolve()),
                             args.reps)
-    if args.smoke:
-        smoke_repeats(args.smoke)
     if args.sweep:
         sweep(args.reps)
-    if args.e2e is not None:
-        if args.parent is None:
-            raise SystemExit("--e2e needs --parent")
-        compare_e2e(args.parent.resolve(), args.runs, args.e2e)
     return 0
 
 

@@ -22,10 +22,10 @@ API and numerics contract follow the reference entry point
   kernel), fetched the same way and scattered back to the var axis with NaN
   for genes no window covers;
 * the host packers run in native code (``native/pack.cpp``), and with more
-  than one batch to compute and no ``stats`` the batches are pipelined: a
-  worker thread packs batch k+1 into pinned buffers and copies it on a copy
-  stream while the device computes batch k and the main thread assembles
-  batch k-1 (the JAX package's prefetch thread, ``tl/_infercnv.py:734-849``);
+  than one batch to compute and no ``stats`` :class:`_Pipeline` overlaps the
+  batches: a worker thread packs batch k+1 into pinned buffers and copies it
+  on a copy stream while the device computes batch k and the main thread
+  assembles batch k-1 (the JAX package's prefetch thread, ``tl/_infercnv.py:734-849``);
 * ``checkpoint_dir`` streams finished batches to disk in the JAX package's
   layout and resumes from them.
 """
@@ -33,9 +33,11 @@ API and numerics contract follow the reference entry point
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
+import sys
 import threading
 import time
 from collections.abc import Sequence
@@ -47,11 +49,13 @@ import pandas as pd
 import scipy.sparse as sp
 import torch
 
-from .. import profiling
+from .. import native, profiling
 from .._util import _ensure_array, info, pick_devices, warn
 from ..genome.plan import build_window_plan
+from ..ops import _build, sparse_ingest
 from ..ops.gene import gene_projection_data
 from ..ops.infercnv_kernel import _pack_lut, pack_columns, pack_csr, packed_width
+from ..ops.result_pack import _shard_local_valid, round_result_cap, sharded_compact, sharded_mask_nnz
 from ..parallel.mesh import replicate, shard_rows
 from ..parallel.sharded import sharded_infercnv_fn
 
@@ -255,26 +259,34 @@ def clear_transform_caches() -> None:
     _sharded._BUILD_CACHE.clear()
 
 
-def _stage(name: str, stats: dict | None, key: str, devices=(), **attrs):
-    """The span ``name`` (``profiling.span``); with ``stats``, also the stage clock.
+class _Clock:
+    """A call's stage spans and counters (``profiling``); with ``stats``, also its stage clock, which synchronizes
+    the CUDA ``devices`` at both ends of a stage and adds its wall to ``stats[key]``, so a serialized run's stages
+    are exact; a counter adds to ``stats[key]`` too."""
 
-    The clock synchronizes the CUDA ``devices`` at both ends of the stage and
-    adds its wall to ``stats[key]``, so a serialized run's stages are exact.
-    """
-    span = profiling.span(name, **attrs)
-    return span if stats is None else _clocked(span, stats, key, devices)
+    def __init__(self, stats: dict | None, devices=()):
+        self.stats = stats
+        self.devices = devices if stats is not None else ()
 
+    @contextlib.contextmanager
+    def stage(self, name: str, key: str, parent=None, **attrs):
+        """The span ``name`` (``profiling.span``), timed into ``stats[key]``."""
+        with profiling.span(name, parent, **attrs):
+            t0 = self._synchronize()
+            yield
+            if self.stats is not None:
+                self.stats[key] = self.stats.get(key, 0.0) + (self._synchronize() - t0)
 
-@contextlib.contextmanager
-def _clocked(span, stats: dict, key: str, devices):
-    with span:
-        for d in devices:
+    def _synchronize(self) -> float:
+        for d in self.devices:
             torch.cuda.synchronize(d)
-        t0 = time.perf_counter()
-        yield
-        for d in devices:
-            torch.cuda.synchronize(d)
-        stats[key] = stats.get(key, 0.0) + (time.perf_counter() - t0)
+        return time.perf_counter()
+
+    def count(self, key: str, n: int) -> None:
+        """Add ``n`` to the counter ``key`` of the open span, and with ``stats`` to ``stats[key]``."""
+        profiling.count(key, n)
+        if self.stats is not None:
+            self.stats[key] = self.stats.get(key, 0) + n
 
 
 def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, stats: dict | None = None) -> np.ndarray:
@@ -283,7 +295,7 @@ def _reindex_genes(per_gene: np.ndarray, obs_names, masked_names, var_names, sta
     As the JAX package does it (``infercnvpy_tpu/tl/_infercnv.py:161-166``):
     through a pandas reindex.  ``stats`` receives ``gene_reindex_sec``.
     """
-    with _stage("infercnv.gene_reindex", stats, "gene_reindex_sec"):
+    with _Clock(stats).stage("infercnv.gene_reindex", "gene_reindex_sec"):
         df = pd.DataFrame(per_gene, index=obs_names, columns=masked_names)
         return df.reindex(columns=var_names, fill_value=np.nan).values
 
@@ -571,11 +583,6 @@ class _Downloads:
         return events
 
 
-def _host_rows(parts: list[torch.Tensor]) -> np.ndarray:
-    """The shards' host row blocks as one array (the one block itself for one shard)."""
-    return parts[0].numpy() if len(parts) == 1 else np.concatenate([p.numpy() for p in parts])
-
-
 class _CallCsr:
     """A call's CSR result in one ``indptr`` / ``indices`` / ``data`` each, filled batch by batch in row order.
 
@@ -621,8 +628,6 @@ class _CallCsr:
 
     def put_packed(self, masks: list, vals: list, seg_nnz, threads: int) -> tuple[int, int]:
         """A packed batch (the shards' word masks and value segments); returns ``(values written, bytes copied)``."""
-        from .. import native
-
         rows = sum(m.shape[0] for m in masks)
         copied = self._reserve(rows, int(sum(seg_nnz)))
         n = native.mask_to_csr(masks, vals, seg_nnz, self.shape[1], self.indptr, self.indices, self.data,
@@ -685,6 +690,310 @@ def _index_dtypes(indices: np.ndarray, indptr: np.ndarray) -> tuple[np.ndarray, 
 _TORCH_INT = {np.dtype(np.uint16): torch.uint16, np.dtype(np.int32): torch.int32}
 
 
+@dataclasses.dataclass
+class _Result:
+    """One matrix's result on one batch, on the devices or the host: the shards' ``{"mask": word masks, "vals":
+    value segments}`` and the segments' value counts ``nnz``, or ``{"dense": their rows}``."""
+
+    parts: dict
+    nnz: list | None = None
+
+    @classmethod
+    def of(cls, arrs: list, rows: int, shards: list, caps: dict, key: str, pack: bool) -> _Result:
+        """The shards' result rows ``arrs`` as fetched: packed when ``pack`` and the masks and values ship fewer
+        bytes than the dense rows, else the ``rows`` valid rows.  ``caps[key]`` is the matrix's own value
+        capacity (the gene matrix's nnz must not size the window fetch)."""
+        if pack:
+            # the counts wait for this batch's compute; the packer packs the next batch meanwhile
+            masks, nnz = sharded_mask_nnz(arrs, rows)
+            caps[key] = cap = max(caps[key], round_result_cap(max(nnz)))
+            item = arrs[0].element_size()
+            if sum(m.numel() * m.element_size() for m in masks) + len(arrs) * cap * item \
+                    < sum(a.numel() for a in arrs) * item:
+                return cls({"mask": masks, "vals": sharded_compact(arrs, rows, cap)}, nnz)
+        return cls({"dense": [a[: _shard_local_valid(rows, lo, hi - lo)] for a, (lo, hi) in zip(arrs, shards)]})
+
+    def fetch(self, downloads: _Downloads, slot: int, name: str, clock: _Clock, key: str) -> _Result:
+        """The result on the host, its copies started into the slot's buffers ``name_*`` and counted in ``key``."""
+        clock.count(key, sum(t.numel() * t.element_size() for ts in self.parts.values() for t in ts))
+        return _Result({k: [downloads.fetch(slot, f"{name}_{k}{i}", t) for i, t in enumerate(ts)]
+                        for k, ts in self.parts.items()}, self.nnz)
+
+    def fill(self, csr: _CallCsr, threads: int) -> tuple[int, int]:
+        """The host result into ``csr``; returns ``(values the native fill wrote, bytes copied)``."""
+        if self.nnz is None:
+            rows = [p.numpy() for p in self.parts["dense"]]
+            return 0, csr.put(*native.dense_to_csr(rows[0] if len(rows) == 1 else np.concatenate(rows)))
+        masks = [m.numpy().view(np.uint32) for m in self.parts["mask"]]
+        return csr.put_packed(masks, [v.numpy() for v in self.parts["vals"]], self.nnz, threads)
+
+
+class _Packer:
+    """Packs and copies up the computed batches (``pack_up``): with ``worker``, on the ``infercnv-pack`` thread,
+    each submitted a batch ahead of the caller, its copy waiting for the gate of the batch taken before it; else
+    inline when taken, with no wait and no gate."""
+
+    def __init__(self, pack_up, worker: bool):
+        self.pack_up = pack_up
+        self.pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="infercnv-pack") if worker else None
+        self.ahead = self.gate = None  # the batch submitted and not yet taken; the gate of the batch taken last
+
+    @property
+    def busy(self) -> bool:
+        """A next batch is submitted and not yet taken: the thread packs beside the caller."""
+        return self.ahead is not None
+
+    def submit(self, start: int | None) -> None:
+        if self.pool is not None and start is not None:
+            self.ahead = self.pool.submit(self.pack_up, start, profiling.current(), self.gate)
+
+    def take(self, start: int):
+        if self.pool is None:
+            return self.pack_up(start)
+        with profiling.span("infercnv.wait", on="pack"):
+            prepared = self.ahead.result()
+        self.ahead, self.gate = None, threading.Event()
+        return prepared
+
+    def computed(self) -> None:
+        """Opens the gate: the batch taken last has computed."""
+        if self.gate is not None:
+            self.gate.set()
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.computed()
+            self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+class _Pipeline:
+    """A call's batches: each packed and copied up, computed, fetched, and assembled into ``out``, its gene values
+    into ``gene_parts``, and the checkpoint; or loaded from the checkpoint.  The constructor makes what they share:
+    ``slots``, the batches to compute in order, each to its upload and download slot, and, when there is one, the
+    transform ``fn``, the reference on the devices and the slots' buffers (a run that only resumes builds none)."""
+
+    def __init__(self, expr, plan, reference, columns, devices, clock: _Clock, ckpt: Path | None, *, batch_cells,
+                 chunksize, cdtype, stage_dtype, use_sparse, use_result_pack, gene_values, lfc_clip,
+                 dynamic_threshold, progress):
+        n_cells, n_cols = expr.shape
+        np_cdtype = _np_dtype(cdtype)
+        self.expr, self.plan, self.clock, self.ckpt, self.progress = expr, plan, clock, ckpt, progress
+        self.batch_cells, self.chunksize, self.cdtype = batch_cells, chunksize, cdtype
+        self.use_sparse, self.use_result_pack = use_sparse, use_result_pack
+        self.num_chunks = max(1, -(-n_cells // chunksize))
+        starts = range(0, n_cells, batch_cells)
+        computed = [s for s in starts if ckpt is None or not _batch_file(ckpt, s).exists()]
+        self.slots = {s: i % 2 for i, s in enumerate(computed)}
+        self.gpd = gene_projection_data(plan) if gene_values else None  # the gene projection
+        self.out = _CallCsr(n_cells, plan.n_windows, np_cdtype)
+        self.gene_parts, self.caps = [], {"x": 0, "gene": 0}  # a value capacity a matrix
+        lut = _pack_lut(plan, len(columns))
+        # the packers read expr's own columns through the LUT spread onto them
+        self.col_lut = np.full(n_cols, -1, dtype=np.int64)
+        self.col_lut[columns] = lut
+        if not self.slots:
+            return  # every batch resumes from the checkpoint
+        if clock.stats is not None:
+            t0 = time.perf_counter()
+            native.library()
+            if devices[0].type == "cuda" and cdtype == torch.float32:
+                _build.library()
+            clock.stats["compile_sec"] = time.perf_counter() - t0
+        # the transform maps the shards' operands to the shards' results, as lists
+        self.fn = sharded_infercnv_fn(
+            plan, devices, n_ref_rows=reference.shape[0], lfc_clip=lfc_clip, dynamic_threshold=dynamic_threshold,
+            num_chunks=self.num_chunks, calculate_gene_values=gene_values, dtype=cdtype,
+        )
+        self.refs = replicate(torch.from_numpy(pack_columns(np.asarray(reference, np_cdtype), plan, lut)), devices)
+
+        # every batch ships this many rows, a multiple of the device count; the
+        # padding rows take the sentinel chunk id num_chunks
+        rows_padded = batch_cells if n_cells > batch_cells else n_cells
+        rows_padded += (-rows_padded) % len(devices)
+        self.width = width = packed_width(plan)
+        specs = {"chunk": ((rows_padded,), torch.int64)}
+        if use_sparse:
+            # one nnz capacity for all batches of this run (the per-batch
+            # maximum of the masked genes' nonzeros, bucket-rounded), so every
+            # batch ships buffers of one size
+            ptr = expr.indptr
+            bounds = [(int(ptr[s]), int(ptr[min(s + batch_cells, n_cells)])) for s in starts]
+            if len(columns) < n_cols:
+                kept = np.zeros(n_cols, dtype=np.uint8)
+                kept[columns] = 1
+                batch_nnz = [native.count_in_columns(expr.indices[lo:hi], kept) for lo, hi in bounds]
+            else:
+                batch_nnz = [hi - lo for lo, hi in bounds]
+            shared_cap = sparse_ingest.round_nnz_cap(max(batch_nnz))
+            specs["cols"] = ((shared_cap,), _TORCH_INT[np.dtype(sparse_ingest.col_index_dtype(width))])
+            specs["vals"] = ((shared_cap,), stage_dtype)
+            specs["counts"] = ((rows_padded,), torch.int32)
+        else:
+            specs["x"] = ((rows_padded, width), stage_dtype)
+        # compute-dtype staging for another transfer dtype; the native remap writes bfloat16 itself
+        convert = stage_dtype != cdtype and not (use_sparse and stage_dtype == torch.bfloat16)
+        self.scratch = np.empty(specs["vals" if use_sparse else "x"][0], np_cdtype) if convert else None
+        with profiling.span("infercnv.slots"):
+            self.uploads = _Uploads(devices, shard_rows(rows_padded, len(devices)), specs)
+            self.downloads = _Downloads(devices)
+
+    def pack_up(self, start: int, parent=None, after=None) -> tuple[list, int, int | None]:
+        """Pack batch ``start`` into its slot and, once ``after`` is set, start its copy to the devices; returns the
+        shards' ``(tensors, event)``, the rows and the values (device densify).  ``parent`` handed the batch over."""
+        slot = self.slots[start]
+        rows = min(self.batch_cells, self.expr.shape[0] - start)
+        np_cdtype = _np_dtype(self.cdtype)
+        staged = self.uploads.tensors[slot]["vals" if self.use_sparse else "x"]
+        with self.clock.stage("infercnv.pack", "host_pack_sec", parent=parent):
+            host = self.uploads.host(slot)
+            nnz = None
+            if self.use_sparse:
+                # bfloat16 is written by the native remap itself; another transfer
+                # dtype is converted from the compute dtype after the remap
+                _, _, _, nnz = sparse_ingest.coo_from_csr_batch(
+                    self.expr, self.col_lut, self.width, len(host["cols"]),
+                    "bfloat16" if staged.dtype == torch.bfloat16 else np_cdtype, rows=(start, start + rows),
+                    out=(host["cols"], host["vals"] if self.scratch is None else self.scratch, host["counts"][:rows]),
+                )
+                host["counts"][rows:] = 0
+            else:
+                block = host["x"] if self.scratch is None else self.scratch
+                if sp.issparse(self.expr):
+                    pack_csr(self.expr, self.plan, self.col_lut, dtype=np_cdtype, rows=(start, start + rows),
+                             out=block[:rows])
+                else:
+                    raw = _ensure_array(np.asarray(self.expr[start : start + rows]))
+                    pack_columns(raw, self.plan, self.col_lut, dtype=np_cdtype, out=block[:rows])
+                block[rows:] = 0
+            if self.scratch is not None:
+                # round to the transfer dtype on the host (torch's
+                # round-to-nearest-even); the device upcasts again
+                staged.copy_(torch.from_numpy(self.scratch))
+            chunk = host["chunk"]
+            np.floor_divide(np.arange(start, start + len(chunk)), self.chunksize, out=chunk)
+            chunk[rows:] = self.num_chunks
+        if after is not None:
+            with profiling.span("infercnv.wait", parent=parent, on="memory"):
+                after.wait()
+        with self.clock.stage("infercnv.h2d", "h2d_sec", parent=parent):
+            devs = self.uploads.to_device(slot)
+            self.clock.count("h2d_bytes", self.uploads.nbytes)
+        return devs, rows, nnz
+
+    def compute(self, devs: list, rows: int, nnz) -> tuple[_Result, _Result | None]:
+        """The window and gene results of a batch's uploads, on the devices."""
+        parts = [self.uploads.ready(dev, event) for dev, event in devs]
+        with self.clock.stage("infercnv.launch", "compute_sec"):
+            if self.use_sparse:
+                densify = sparse_ingest.densify
+                xs = [densify(p["cols"], p["vals"], p["counts"], nnz, self.width, self.cdtype) for p in parts]
+            else:
+                xs = [p["x"] for p in parts]
+            x, g = self.fn(xs, self.refs, [p["chunk"] for p in parts])
+            shards, pack = self.uploads.shards, self.use_result_pack
+            return (_Result.of(x, rows, shards, self.caps, "x", pack),
+                    None if self.gpd is None else _Result.of(g, rows, shards, self.caps, "gene", pack))
+
+    def fetch(self, start: int, x: _Result, g: _Result | None) -> tuple:
+        """Start batch ``start``'s copies to the host; returns the arguments of :meth:`assemble`."""
+        with self.clock.stage("infercnv.d2h", "d2h_sec"):
+            x = x.fetch(self.downloads, self.slots[start], "x", self.clock, "d2h_bytes")
+            if g is not None:
+                g = g.fetch(self.downloads, self.slots[start], "gene", self.clock, "gene_d2h_bytes")
+            return start, x, g, self.downloads.record()
+
+    def assemble(self, start: int, x: _Result, g: _Result | None, copies: list, beside_packer: bool) -> None:
+        """Wait for batch ``start``'s ``copies``, fill it into ``out`` and ``gene_parts``, checkpoint it."""
+        if copies:
+            with profiling.span("infercnv.wait", on="copies"):
+                for event in copies:
+                    event.synchronize()
+        row0 = self.out.rows
+        # the native fill's threads, or the dense scan's
+        threads = max(1, torch.get_num_threads()) if x.nnz is None else _csr_fill_threads(sum(x.nnz), beside_packer)
+        with self.clock.stage("infercnv.csr", "csr_sec", threads=threads):
+            written, copied = x.fill(self.out, threads)
+            self.clock.count("csr_nnz", written)
+            self.clock.count("csr_copied_bytes", copied)
+        gene = None
+        if g is not None:
+            with self.clock.stage("infercnv.gene_unpack", "gene_unpack_sec"):
+                # per-gene values are consumed (and checkpointed) dense, copied
+                # out of the reused host buffer
+                if g.nnz is None:
+                    gene = np.concatenate([p.numpy() for p in g.parts["dense"]])
+                else:
+                    genes = _CallCsr(self.out.rows - row0, self.gpd.total, _np_dtype(self.cdtype))
+                    g.fill(genes, _csr_fill_threads(sum(g.nnz), beside_packer))
+                    gene = genes.matrix().toarray()
+                self.gene_parts.append(gene)
+        if self.ckpt is not None:
+            with self.clock.stage("infercnv.checkpoint", "csr_sec"):
+                shape = (self.out.rows - row0, self.plan.n_windows)
+                _save_batch(self.ckpt, start, self.out.batch(row0, self.out.rows), shape, gene)
+
+    def load(self, start: int) -> None:
+        """Batch ``start`` from the checkpoint into ``out`` and ``gene_parts``."""
+        with profiling.span("infercnv.resume"), np.load(_batch_file(self.ckpt, start)) as z:
+            part = z["data"], z["indices"], z["indptr"]
+            if self.gpd is not None:
+                self.gene_parts.append(z["gene"])
+        with self.clock.stage("infercnv.csr", "csr_sec", threads=1):
+            self.clock.count("csr_copied_bytes", self.out.put(*part))
+
+    def report(self, done: int, t0: float) -> None:
+        """``progress`` (as in :func:`infercnv`) after the first ``done`` cells."""
+        if self.progress is False:
+            return
+        n_cells = self.expr.shape[0]
+        elapsed = time.perf_counter() - t0
+        rate = done / max(elapsed, 1e-9)
+        eta = (n_cells - done) / max(rate, 1e-9)
+        msg = f"infercnv: {done:,}/{n_cells:,} cells ({rate:,.0f} cells/s, ETA {eta:.0f}s)"
+        if callable(self.progress):
+            self.progress({"cells_done": done, "cells_total": n_cells, "elapsed_sec": elapsed,
+                           "cells_per_sec": rate, "eta_sec": eta})
+        elif self.progress is True:
+            print(msg, file=sys.stderr, flush=True)
+        else:
+            info(msg)
+
+    def run(self) -> None:
+        """Every batch in cell order: with more than one to compute and no ``stats``, the packer thread packs
+        and copies batch k+1 while the device computes batch k and this thread assembles batch k-1."""
+        packer = _Packer(self.pack_up, worker=self.clock.stats is None and len(self.slots) > 1)
+        upcoming = iter(self.slots)  # the batches to compute, in order
+        t0, pending = time.perf_counter(), None
+        try:
+            packer.submit(next(upcoming, None))
+            for start in range(0, self.expr.shape[0], self.batch_cells):
+                fetched = None
+                if start in self.slots:
+                    devs, rows, nnz = packer.take(start)
+                    # the next computed batch goes to the packer before this one computes
+                    packer.submit(next(upcoming, None))
+                    results = self.compute(devs, rows, nnz)
+                    del devs
+                    # only now may the next batch's copy allocate its device buffers: this compute has returned
+                    # and freed its dense block, so the device's peak is one batch's, whatever the threads' pace
+                    packer.computed()
+                    fetched = self.fetch(start, *results)
+                    del results
+                # the previous batch is assembled once this one's copies have started, or before a resumed batch
+                # loads, so the rows stay in cell order
+                if pending is not None:
+                    self.assemble(*pending, packer.busy)
+                pending = fetched
+                if fetched is None:
+                    self.load(start)
+                self.report(min(start + self.batch_cells, self.expr.shape[0]), t0)
+            if pending is not None:
+                self.assemble(*pending, packer.busy)
+        finally:
+            # a failed batch must not leave the packer waiting for its compute
+            packer.close()
+
+
 def _infercnv_compute(
     expr,
     var: pd.DataFrame,
@@ -744,375 +1053,63 @@ def _infercnv_compute(
     if len(columns) != n_genes or (n_genes and (columns[0] < 0 or columns[-1] >= n_cols)) \
             or np.any(np.diff(columns) <= 0):
         raise ValueError(f"var's {n_genes} genes need as many increasing positions among expr's {n_cols} columns")
-    drops = n_genes < n_cols  # some of expr's columns are not var's genes
     with profiling.span("infercnv.plan"):
         plan = build_window_plan(var, window_size, step)
     if plan.n_windows == 0:
         raise ValueError("No usable chromosomes found (need `chr*` prefixed chromosome annotations).")
 
-    timing = stats is not None
     with profiling.span("infercnv.setup"):
         cdtype = _pick_dtype(expr, dtype)
-        np_cdtype = _np_dtype(cdtype)
         tdt, tdt_name = _transfer_dtype(transfer_dtype)
-        num_chunks = max(1, -(-n_cells // chunksize))
-
         if batch_cells is None:
             # target ≈1.5 GB of dense input per batch, rounded to whole chunks
-            target = max(1, int(1.5e9 / max(1, n_genes * 4)))
-            batch_cells = max(chunksize, (target // chunksize) * chunksize)
-        else:
-            batch_cells = max(chunksize, (batch_cells // chunksize) * chunksize)
+            batch_cells = max(1, int(1.5e9 / max(1, n_genes * 4)))
+        batch_cells = max(chunksize, (batch_cells // chunksize) * chunksize)
         batch_cells = min(batch_cells, ((n_cells + chunksize - 1) // chunksize) * chunksize)
         devices = list(device) if isinstance(device, (list, tuple)) else [device]
-        n_dev = len(devices)
-        sharded = n_dev > 1
-        # every batch ships this many rows, a multiple of the device count; the
-        # padding rows take the sentinel chunk id num_chunks
-        rows_padded = batch_cells if n_cells > batch_cells else n_cells
-        rows_padded += (-rows_padded) % n_dev
-        shards = shard_rows(rows_padded, n_dev)
-
+        sharded = len(devices) > 1
         use_sparse = device_densify is not False and sp.issparse(expr) and not sharded
         if device_densify and sharded:
             warn("device_densify is not supported on several devices; using the host packer")
         use_result_pack = compress_results is True or (compress_results is None and dynamic_threshold is not None)
-        on_cuda = devices[0].type == "cuda"
         _LAST_RUN_INFO.clear()
-        _LAST_RUN_INFO.update({"n_devices": n_dev, "sharded": sharded, "device_densify": use_sparse})
+        _LAST_RUN_INFO.update({"n_devices": len(devices), "sharded": sharded, "device_densify": use_sparse})
 
         ckpt = None
         if checkpoint_dir is not None:
             # the fingerprint is the JAX package's digest of the masked matrix
-            masked = _masked_copy(expr, columns) if drops else expr
+            masked = _masked_copy(expr, columns) if n_genes < n_cols else expr
             fp = _ckpt_fingerprint(
                 masked, var, reference, n_cells, n_genes, window_size, step, lfc_clip, dynamic_threshold,
                 chunksize, calculate_gene_values, batch_cells, cdtype, tdt_name,
             )
             ckpt = _open_checkpoint(checkpoint_dir, fp, n_cells, batch_cells)
-        starts = list(range(0, n_cells, batch_cells))
-        resumed = {s for s in starts if ckpt is not None and _batch_file(ckpt, s).exists()}
-        compute_starts = [s for s in starts if s not in resumed]
-        slot_of = {s: i % 2 for i, s in enumerate(compute_starts)}
-        use_prefetch = not timing and len(compute_starts) > 1
-        clocked = devices if timing and on_cuda else ()
-
-        if timing:
+        if stats is not None:
             stats["mode"] = "device_densify" if use_sparse else "host_pack"
             stats["result_pack"] = use_result_pack
             if tdt_name is not None:
                 stats["transfer_dtype"] = tdt_name
             stats["compile_sec"] = 0.0
-            if compute_starts:
-                from .. import native
-
-                t0 = time.perf_counter()
-                native.library()
-                if on_cuda and cdtype == torch.float32:
-                    from ..ops import _build
-
-                    _build.library()
-                stats["compile_sec"] = time.perf_counter() - t0
-
-        gpd = gene_projection_data(plan) if calculate_gene_values else None
-        lut = _pack_lut(plan, n_genes)
-        # the packers read expr's own columns through the LUT spread onto them
-        col_lut = np.full(n_cols, -1, dtype=np.int64)
-        col_lut[columns] = lut
-        width = packed_width(plan)
-        stage_dtype = tdt if tdt is not None else cdtype
-
-        if compute_starts:
-            from .. import native
-            from ..ops.result_pack import _shard_local_valid, round_result_cap, sharded_compact, sharded_mask_nnz
-            from ..ops.sparse_ingest import coo_from_csr_batch, col_index_dtype, densify, round_nnz_cap
-
-            # the transform is built only here: a run whose every batch resumes
-            # from the checkpoint builds and launches nothing.  It maps the
-            # shards' operands to the shards' results, as lists
-            fn_kw = dict(
-                n_ref_rows=reference.shape[0], lfc_clip=lfc_clip, dynamic_threshold=dynamic_threshold,
-                num_chunks=num_chunks, calculate_gene_values=calculate_gene_values, dtype=cdtype,
-            )
-            fn = sharded_infercnv_fn(plan, devices, **fn_kw)
-
-            refs = replicate(torch.from_numpy(pack_columns(np.asarray(reference, dtype=np_cdtype), plan, lut)), devices)
-
-            specs = {"chunk": ((rows_padded,), torch.int64)}
-            if use_sparse:
-                # one nnz capacity for all batches of this run (the per-batch
-                # maximum of the masked genes' nonzeros, bucket-rounded), so every
-                # batch ships buffers of one size
-                ptr = expr.indptr
-                bounds = [(int(ptr[s]), int(ptr[min(s + batch_cells, n_cells)])) for s in starts]
-                if drops:
-                    kept = np.zeros(n_cols, dtype=np.uint8)
-                    kept[columns] = 1
-                    batch_nnz = [native.count_in_columns(expr.indices[lo:hi], kept) for lo, hi in bounds]
-                else:
-                    batch_nnz = [hi - lo for lo, hi in bounds]
-                shared_cap = round_nnz_cap(max(batch_nnz))
-                specs["cols"] = ((shared_cap,), _TORCH_INT[np.dtype(col_index_dtype(width))])
-                specs["vals"] = ((shared_cap,), stage_dtype)
-                specs["counts"] = ((rows_padded,), torch.int32)
-                # bfloat16 is written by the native remap itself; another transfer
-                # dtype is converted from the compute dtype after the remap
-                convert = stage_dtype not in (cdtype, torch.bfloat16)
-                scratch = np.empty(shared_cap, np_cdtype) if convert else None
-            else:
-                specs["x"] = ((rows_padded, width), stage_dtype)
-                convert = stage_dtype != cdtype
-                scratch = np.empty((rows_padded, width), np_cdtype) if convert else None
-            with profiling.span("infercnv.slots"):
-                uploads = _Uploads(devices, shards, specs)
-                downloads = _Downloads(devices)
-            chunk_base = np.arange(rows_padded, dtype=np.int64)
-
-    def stage(name: str, key: str, **attrs):
-        """The span ``name``; with ``stats``, timed into ``stats[key]`` (``_stage``)."""
-        return _stage(name, stats, key, clocked, **attrs)
-
-    def count(key: str, n: int) -> None:
-        """Add ``n`` to the counter ``key`` of the open span, and with ``stats`` to ``stats[key]``."""
-        profiling.count(key, n)
-        if timing:
-            stats[key] = stats.get(key, 0) + n
-
-    t_run0 = time.perf_counter()
-
-    def _progress(done):
-        if progress is False:
-            return
-        elapsed = time.perf_counter() - t_run0
-        rate = done / max(elapsed, 1e-9)
-        eta = (n_cells - done) / max(rate, 1e-9)
-        if callable(progress):
-            progress({
-                "cells_done": done, "cells_total": n_cells, "elapsed_sec": elapsed,
-                "cells_per_sec": rate, "eta_sec": eta,
-            })
-            return
-        msg = f"infercnv: {done:,}/{n_cells:,} cells ({rate:,.0f} cells/s, ETA {eta:.0f}s)"
-        if progress is True:
-            import sys
-
-            print(msg, file=sys.stderr, flush=True)
-        else:
-            info(msg)
-
-    out = _CallCsr(n_cells, plan.n_windows, np_cdtype)
-    gene_parts = []
-
-    def _load_batch(start):
-        with profiling.span("infercnv.resume"), np.load(_batch_file(ckpt, start)) as z:
-            part = z["data"], z["indices"], z["indptr"]
-            if gpd is not None:
-                gene_parts.append(z["gene"])
-        with stage("infercnv.csr", "csr_sec", threads=1):
-            count("csr_copied_bytes", out.put(*part))
-
-    if compute_starts:
-        def _prepare(start, parent=None, after=None):
-            """Host half of one batch: pack into its slot, start the copy to the device.
-
-            ``parent`` is the span that handed the batch to the packer thread;
-            ``after`` an event the copy waits for (the previous batch computed).
-            """
-            slot = slot_of[start]
-            stop = min(start + batch_cells, n_cells)
-            rows = stop - start
-            with stage("infercnv.pack", "host_pack_sec", parent=parent):
-                host = uploads.host(slot)
-                nnz = None
-                if use_sparse:
-                    val_dtype = "bfloat16" if stage_dtype == torch.bfloat16 else np_cdtype
-                    vals = scratch if convert else host["vals"]
-                    _, _, _, nnz = coo_from_csr_batch(
-                        expr, col_lut, width, shared_cap, val_dtype, rows=(start, stop),
-                        out=(host["cols"], vals, host["counts"][:rows]),
-                    )
-                    host["counts"][rows:] = 0
-                    key = "vals"
-                else:
-                    block = scratch if convert else host["x"]
-                    if sp.issparse(expr):
-                        pack_csr(expr, plan, col_lut, dtype=np_cdtype, rows=(start, stop), out=block[:rows])
-                    else:
-                        raw = _ensure_array(np.asarray(expr[start:stop]))
-                        pack_columns(raw, plan, col_lut, dtype=np_cdtype, out=block[:rows])
-                    block[rows:] = 0
-                    key = "x"
-                if convert:
-                    # round to the transfer dtype on the host (torch's
-                    # round-to-nearest-even); the device upcasts again
-                    uploads.tensors[slot][key].copy_(torch.from_numpy(scratch))
-                chunk = host["chunk"]
-                np.floor_divide(chunk_base + start, chunksize, out=chunk)
-                chunk[rows:] = num_chunks
-
-            if after is not None:
-                with profiling.span("infercnv.wait", parent=parent, on="memory"):
-                    after.wait()
-            with stage("infercnv.h2d", "h2d_sec", parent=parent):
-                devs = uploads.to_device(slot)
-                count("h2d_bytes", uploads.nbytes)
-            return devs, rows, nnz
-
-        # one capacity per matrix: the gene matrix's nnz must not size the window fetch
-        pack_caps = {"x": 0, "gene": 0}
-
-        def _try_pack(arrs: list, cap_key: str, rows: int):
-            """``("packed", masks, vals, shard_nnz)`` on the devices, or None when
-            the dense fetch would ship no more bytes."""
-            # the counts in sharded_mask_nnz wait for this batch's compute; the
-            # worker thread packs the next batch meanwhile
-            masks, nnz = sharded_mask_nnz(arrs, rows)
-            pack_caps[cap_key] = max(pack_caps[cap_key], round_result_cap(max(nnz)))
-            cap = pack_caps[cap_key]
-            item = arrs[0].element_size()
-            packed_bytes = sum(m.numel() * m.element_size() for m in masks) + len(arrs) * cap * item
-            if packed_bytes >= sum(a.numel() for a in arrs) * item:
-                return None
-            return ("packed", masks, sharded_compact(arrs, rows, cap), nnz)
-
-        def _payload(arrs: list, cap_key: str, rows: int):
-            packed = _try_pack(arrs, cap_key, rows) if use_result_pack else None
-            return packed or ("dense", [a[: _shard_local_valid(rows, lo, hi - lo)] for a, (lo, hi) in zip(arrs, shards)])
-
-        def _compute(parts: list, rows: int, nnz):
-            with stage("infercnv.launch", "compute_sec"):
-                if use_sparse:
-                    xs = [densify(p["cols"], p["vals"], p["counts"], nnz, width, cdtype) for p in parts]
-                else:
-                    xs = [p["x"] for p in parts]
-                x_parts, g_parts = fn(xs, refs, [p["chunk"] for p in parts])
-                x_payload = _payload(x_parts, "x", rows)
-                g_payload = _payload(g_parts, "gene", rows) if gpd is not None else None
-            return x_payload, g_payload
-
-        def _fetch(payload, slot: int, name: str, bytes_key: str):
-            """Start the device→host copies of one payload; returns it with host tensors."""
-            packed = payload[0] == "packed"
-            arrays = {"mask": payload[1], "vals": payload[2]} if packed else {"dense": payload[1]}
-            host = {k: [downloads.fetch(slot, f"{name}_{k}{i}", t) for i, t in enumerate(ts)]
-                    for k, ts in arrays.items()}
-            count(bytes_key, sum(t.numel() * t.element_size() for ts in arrays.values() for t in ts))
-            return ("packed", host["mask"], host["vals"], payload[3]) if packed else ("dense", host["dense"])
-
-        def _fill_threads(host) -> int:
-            """The threads that turn a batch's host result into CSR: the native fill's, or the dense scan's.
-
-            The packer is busy beside the fill while a next batch is submitted to it and not yet taken.
-            """
-            if host[0] == "packed":
-                return _csr_fill_threads(sum(host[3]), beside_packer=bool(futures))
-            return max(1, torch.get_num_threads())
-
-        def _fill(host, csr: _CallCsr, threads: int) -> tuple[int, int]:
-            """One batch's host result into ``csr``, a packed one in place in native code.
-
-            Returns ``(values the native fill wrote, bytes copied)``.
-            """
-            if host[0] == "packed":
-                _, masks, vals, nnz = host
-                return csr.put_packed([m.numpy().view(np.uint32) for m in masks], [v.numpy() for v in vals], nnz,
-                                      threads)
-            return 0, csr.put(*native.dense_to_csr(_host_rows(host[1])))
-
-        def _materialize(pending):
-            """Host half of one finished batch: wait for its copies, assemble, checkpoint."""
-            x_host, g_host, events, start = pending
-            if events:
-                with profiling.span("infercnv.wait", on="copies"):
-                    for event in events:
-                        event.synchronize()
-            row0 = out.rows
-            threads = _fill_threads(x_host)
-            with stage("infercnv.csr", "csr_sec", threads=threads):
-                written, copied = _fill(x_host, out, threads)
-                count("csr_nnz", written)
-                count("csr_copied_bytes", copied)
-            g_np = None
-            if g_host is not None:
-                with stage("infercnv.gene_unpack", "gene_unpack_sec"):
-                    # per-gene values are consumed (and checkpointed) dense, copied
-                    # out of the reused host buffer
-                    if g_host[0] == "dense":
-                        g_np = np.concatenate([p.numpy() for p in g_host[1]])
-                    else:
-                        genes = _CallCsr(out.rows - row0, gpd.total, np_cdtype)
-                        _fill(g_host, genes, _fill_threads(g_host))
-                        g_np = genes.matrix().toarray()
-                    gene_parts.append(g_np)
-            if ckpt is not None:
-                with stage("infercnv.checkpoint", "csr_sec"):
-                    _save_batch(ckpt, start, out.batch(row0, out.rows), (out.rows - row0, plan.n_windows), g_np)
-
-    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="infercnv-pack") if use_prefetch else None
-    futures: dict = {}
-    # a prefetched batch's copy allocates its device buffers only once the previous
-    # batch's compute has returned and freed its dense block, so the device's peak
-    # is one batch's, whatever the pace of the two threads
-    computed = {s: threading.Event() for s in compute_starts} if use_prefetch else {}
-    if use_prefetch:
-        futures[compute_starts[0]] = pool.submit(_prepare, compute_starts[0], profiling.current())
-    next_prefetch = 1
-    try:
-        pending = None
-        done_cells = 0
-        for start in starts:
-            stop = min(start + batch_cells, n_cells)
-            if start in resumed:
-                # drain the pipeline first, so parts stay in cell order
-                if pending is not None:
-                    _materialize(pending)
-                    pending = None
-                _load_batch(start)
-                done_cells += stop - start
-                _progress(done_cells)
-                continue
-            if use_prefetch:
-                with profiling.span("infercnv.wait", on="pack"):
-                    devs, rows, nnz = futures.pop(start).result()
-                if next_prefetch < len(compute_starts):
-                    nxt = compute_starts[next_prefetch]
-                    futures[nxt] = pool.submit(_prepare, nxt, profiling.current(), computed[start])
-                    next_prefetch += 1
-            else:
-                devs, rows, nnz = _prepare(start)
-            x_payload, g_payload = _compute([uploads.ready(dev, event) for dev, event in devs], rows, nnz)
-            del devs
-            if start in computed:
-                computed[start].set()
-            slot = slot_of[start]
-            with stage("infercnv.d2h", "d2h_sec"):
-                x_host = _fetch(x_payload, slot, "x", "d2h_bytes")
-                g_host = _fetch(g_payload, slot, "gene", "gene_d2h_bytes") if g_payload is not None else None
-                fetched = downloads.record()
-            del x_payload, g_payload
-            if pending is not None:
-                _materialize(pending)
-            pending = (x_host, g_host, fetched, start)
-            done_cells += stop - start
-            _progress(done_cells)
-        if pending is not None:
-            _materialize(pending)
-    finally:
-        if pool is not None:
-            for event in computed.values():  # a failed batch must not leave the packer waiting
-                event.set()
-            pool.shutdown(wait=True, cancel_futures=True)
+        clock = _Clock(stats, devices if devices[0].type == "cuda" else ())
+        pipeline = _Pipeline(
+            expr, plan, reference, columns, devices, clock, ckpt, batch_cells=batch_cells, chunksize=chunksize,
+            cdtype=cdtype, stage_dtype=cdtype if tdt is None else tdt, use_sparse=use_sparse,
+            use_result_pack=use_result_pack, gene_values=calculate_gene_values, lfc_clip=lfc_clip,
+            dynamic_threshold=dynamic_threshold, progress=progress,
+        )
+    pipeline.run()
 
     with profiling.span("infercnv.stack"):
-        res = out.matrix()
+        res = pipeline.out.matrix()
     per_gene = None
-    if gpd is not None:
-        with stage("infercnv.gene_scatter", "gene_scatter_sec"):
+    if pipeline.gpd is not None:
+        gene_parts = pipeline.gene_parts
+        with clock.stage("infercnv.gene_scatter", "gene_scatter_sec"):
             used = np.concatenate(gene_parts, axis=0) if len(gene_parts) > 1 else gene_parts[0]
             # device gene columns are in coverage-group order; scatter them to the
             # masked var axis (uncovered genes stay NaN, as in the reference's reindex)
             per_gene = np.full((n_cells, n_genes), np.nan, dtype=used.dtype)
-            per_gene[:, plan.used_genes[gpd.covered_sorted]] = used
+            per_gene[:, plan.used_genes[pipeline.gpd.covered_sorted]] = used
     return plan.chr_pos, res, per_gene
 
 
@@ -1124,11 +1121,7 @@ def _get_reference(
     layer: str | None,
 ) -> np.ndarray:
     """Reference-baseline extraction (behavior matches reference tl/_infercnv.py:359-408)."""
-    if layer is not None:
-        X = adata.layers[layer]
-    else:
-        X = adata.X
-
+    X = adata.X if layer is None else adata.layers[layer]
     if reference is None:
         if reference_key is None or reference_cat is None:
             warn(

@@ -244,6 +244,99 @@ def test_prefetched_copy_waits_for_the_previous_compute(tmp_path):
         assert copy.start >= launch.end
 
 
+def _census_run(case: str, tmp_path) -> list:
+    """The spans of one traced call of ``case`` on ``_dataset()``'s three batches."""
+    adata = _dataset()
+    if case == "serialized":
+        keep = (adata.var["chromosome"].notnull() & ~adata.var["chromosome"].isin(["chrX", "chrY"])).to_numpy()
+        ref = _get_reference(adata, "cell_type", REF_CAT, None, None)[:, keep]
+        with profiling.trace(tmp_path / "trace"):
+            _infercnv_compute(adata.X[:, np.flatnonzero(keep)], adata.var.loc[keep, ["chromosome", "start", "end"]],
+                              np.asarray(ref, dtype=np.float64), lfc_clip=3, window_size=100, step=10,
+                              dynamic_threshold=1.5, chunksize=40, batch_cells=80, dtype=None,
+                              device=torch.device("cpu"), stats={})
+        return profiling.last_spans
+    kw = dict(KW, device=["cpu", "cpu"]) if case == "two_devices" else KW
+    if case == "resumed":
+        kw = dict(KW, calculate_gene_values=True, checkpoint_dir=tmp_path / "ckpt")
+        tcnv.tl.infercnv(adata, **kw)
+        next(iter(sorted((tmp_path / "ckpt").glob("batch_*.npz")))).unlink()
+    with profiling.trace(tmp_path / "trace"):
+        tcnv.tl.infercnv(adata, **kw)
+    return profiling.last_spans
+
+
+def _census(spans: list) -> tuple[dict, dict]:
+    """``({(name, on, "main" or "packer", parent's name): spans}, {counter: total})`` of a call's spans."""
+    main = threading.get_native_id()
+    names = {s.id: s.name for s in spans}
+    shapes, counts = {}, {}
+    for s in spans:
+        key = (s.name, s.attrs.get("on"), "main" if s.thread == main else "packer", names.get(s.parent))
+        shapes[key] = shapes.get(key, 0) + 1
+        for name, n in s.counts.items():
+            counts[name] = counts.get(name, 0) + n
+    return shapes, counts
+
+
+#: each case's span census and counter totals on the CPU, as recorded; a change to the batch loop leaves them as is
+CENSUS = {
+    "pipelined": (
+        {("infercnv", None, "main", None): 1, ("infercnv.reference", None, "main", "infercnv"): 1,
+         ("infercnv.subset", None, "main", "infercnv"): 1, ("infercnv.plan", None, "main", "infercnv"): 1,
+         ("infercnv.setup", None, "main", "infercnv"): 1, ("infercnv.slots", None, "main", "infercnv.setup"): 1,
+         ("infercnv.pack", None, "packer", "infercnv"): 3, ("infercnv.h2d", None, "packer", "infercnv"): 3,
+         ("infercnv.wait", "memory", "packer", "infercnv"): 2, ("infercnv.wait", "pack", "main", "infercnv"): 3,
+         ("infercnv.launch", None, "main", "infercnv"): 3,
+         ("infercnv.wait", "compute", "main", "infercnv.launch"): 3, ("infercnv.d2h", None, "main", "infercnv"): 3,
+         ("infercnv.csr", None, "main", "infercnv"): 3, ("infercnv.stack", None, "main", "infercnv"): 1},
+        {"csr_copied_bytes": 0, "csr_nnz": 637, "d2h_bytes": 13248, "h2d_bytes": 18877248},
+    ),
+    "serialized": (
+        {("infercnv.plan", None, "main", None): 1, ("infercnv.setup", None, "main", None): 1,
+         ("infercnv.slots", None, "main", "infercnv.setup"): 1, ("infercnv.pack", None, "main", None): 3,
+         ("infercnv.h2d", None, "main", None): 3, ("infercnv.launch", None, "main", None): 3,
+         ("infercnv.wait", "compute", "main", "infercnv.launch"): 3, ("infercnv.d2h", None, "main", None): 3,
+         ("infercnv.csr", None, "main", None): 3, ("infercnv.stack", None, "main", None): 1},
+        {"csr_copied_bytes": 0, "csr_nnz": 637, "d2h_bytes": 13248, "h2d_bytes": 18877248},
+    ),
+    "resumed": (
+        {("infercnv", None, "main", None): 1, ("infercnv.reference", None, "main", "infercnv"): 1,
+         ("infercnv.subset", None, "main", "infercnv"): 1, ("infercnv.plan", None, "main", "infercnv"): 1,
+         ("infercnv.setup", None, "main", "infercnv"): 1, ("infercnv.slots", None, "main", "infercnv.setup"): 1,
+         ("infercnv.pack", None, "main", "infercnv"): 1, ("infercnv.h2d", None, "main", "infercnv"): 1,
+         ("infercnv.launch", None, "main", "infercnv"): 1,
+         ("infercnv.wait", "compute", "main", "infercnv.launch"): 2, ("infercnv.d2h", None, "main", "infercnv"): 1,
+         ("infercnv.csr", None, "main", "infercnv"): 3, ("infercnv.gene_unpack", None, "main", "infercnv"): 1,
+         ("infercnv.checkpoint", None, "main", "infercnv"): 1, ("infercnv.resume", None, "main", "infercnv"): 2,
+         ("infercnv.stack", None, "main", "infercnv"): 1, ("infercnv.gene_scatter", None, "main", "infercnv"): 1,
+         ("infercnv.gene_reindex", None, "main", "infercnv"): 1},
+        {"csr_copied_bytes": 4088, "csr_nnz": 206, "d2h_bytes": 4416, "gene_d2h_bytes": 40448,
+         "h2d_bytes": 6292416, "subset_copy_bytes": 840676},
+    ),
+    "two_devices": (
+        {("infercnv", None, "main", None): 1, ("infercnv.reference", None, "main", "infercnv"): 1,
+         ("infercnv.subset", None, "main", "infercnv"): 1, ("infercnv.plan", None, "main", "infercnv"): 1,
+         ("infercnv.setup", None, "main", "infercnv"): 1, ("infercnv.slots", None, "main", "infercnv.setup"): 1,
+         ("infercnv.pack", None, "packer", "infercnv"): 3, ("infercnv.h2d", None, "packer", "infercnv"): 3,
+         ("infercnv.wait", "memory", "packer", "infercnv"): 2, ("infercnv.wait", "pack", "main", "infercnv"): 3,
+         ("infercnv.launch", None, "main", "infercnv"): 3,
+         ("infercnv.wait", "compute", "main", "infercnv.launch"): 3, ("infercnv.d2h", None, "main", "infercnv"): 3,
+         ("infercnv.csr", None, "main", "infercnv"): 3, ("infercnv.stack", None, "main", "infercnv"): 1},
+        {"csr_copied_bytes": 6056, "csr_nnz": 0, "d2h_bytes": 21120, "h2d_bytes": 710400},
+    ),
+}
+
+
+@pytest.mark.parametrize("case", ["pipelined", "serialized", "resumed", "two_devices"])
+def test_infercnv_span_census(tmp_path, case):
+    """Each call opens the same spans, on the same threads under the same parents, with the same counter totals:
+    three batches pipelined, the same three serialized by ``stats``, two of three resumed with gene values, and
+    two cell shards."""
+    shapes, counts = _census(_census_run(case, tmp_path))
+    assert (shapes, counts) == CENSUS[case]
+
+
 def test_a_failed_batch_does_not_leave_the_packer_waiting(monkeypatch):
     """The packer thread waits for the previous batch's compute; when that compute raises, the call raises too
     and returns."""
