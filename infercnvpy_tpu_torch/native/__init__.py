@@ -11,13 +11,15 @@ a name that carries a hash of its source and flags; the build writes a
 temporary file and renames it, so concurrent processes never load a partial
 library.  A failed build raises with g++'s stderr: nothing falls back to
 numpy or Python.  The numpy versions in ``ops/sparse_ingest.py`` and
-``ops/infercnv_kernel.py`` and ``ops/leiden.py::leiden_plain`` are the
-references the tests hold these against.
+``ops/infercnv_kernel.py``, ``ops/leiden.py::leiden_plain`` and scipy's
+mean in ``tl/_infercnv.py::_mean0`` are the references the tests hold these
+against.
 
 Every packer wrapper checks dtypes, shapes and index bounds before it passes
-a pointer (the C scatters are unchecked; ``count_in_columns`` checks each
-column id itself before it reads the flag), runs on ``torch.get_num_threads()``
-OpenMP threads (``mask_to_csr`` on ``threads`` when given), releases the GIL
+a pointer (the C scatters are unchecked; ``count_in_columns`` and
+``reference_sums`` check each column id themselves before they use it),
+runs on ``torch.get_num_threads()`` OpenMP threads (``mask_to_csr`` on
+``threads`` when given, ``reference_sums`` on one a slot), releases the GIL
 for the call (ctypes does), counts its calls in ``.calls``, and can write into
 caller-owned ``out`` buffers, such as pinned host memory, which it overwrites
 completely (``mask_to_csr`` writes only its rows' slots of the call's arrays).
@@ -37,14 +39,16 @@ import numpy as np
 from .. import profiling
 
 __all__ = [
-    "library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "count_in_columns", "GXX_FLAGS",
+    "library", "build", "pack_csr", "pack_dense", "coo_remap", "dense_to_csr", "count_in_columns", "reference_sums",
+    "GXX_FLAGS",
     "leiden_library", "build_leiden", "leiden", "LEIDEN_FLAGS",
 ]
 
 _SRC = Path(__file__).resolve().parent / "pack.cpp"
 _LEIDEN_SRC = Path(__file__).resolve().parent / "leiden.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp")
+#: ``-ffp-contract=off``: ``reference_sums`` rounds each product before it adds it, as numpy and scipy do
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp", "-ffp-contract=off")
 #: the flags of ``infercnvpy_tpu/native/__init__.py::_build_library``: the same code gives the same labels
 LEIDEN_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
@@ -68,6 +72,9 @@ _SIGNATURES = {
     "mask_to_csr": (_I64, (_P, _P, _I64P, _I64P, _I64, _I64, _I64, _I64, _I64P, _I32P, _P, _I32)),
 }
 _SUFFIX = {np.dtype(np.float32): "f32", np.dtype(np.float64): "f64"}
+#: ``reference_sums_f64``'s code of each value type it reads
+_F64_SOURCES = {np.dtype(t): k for k, t in enumerate(
+    (np.float64, np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16, np.uint32, np.uint64))}
 
 _LIB = None
 _LEIDEN_LIB = None
@@ -117,6 +124,10 @@ def library() -> ctypes.CDLL:
         # indices, n, keep, n_cols, n_threads
         lib.count_in_columns.restype = _I64
         lib.count_in_columns.argtypes = [_I32P, _I64, _P, _I64, _I32]
+        # indptr, indices, data, [source,] nnz, n_rows, slot, n_slots, scale, n_cols, out, n_threads
+        lib.reference_sums_f32.restype = lib.reference_sums_f64.restype = _I64
+        lib.reference_sums_f32.argtypes = [_I64P, _I32P, _P, _I64, _I64, _I32P, _I64, _P, _I64, _P, _I32]
+        lib.reference_sums_f64.argtypes = [_I64P, _I32P, _P, _I32, _I64, _I64, _I32P, _I64, _P, _I64, _P, _I32]
         _LIB = lib
     return _LIB
 
@@ -350,6 +361,57 @@ def count_in_columns(indices, keep) -> int:
 
 
 count_in_columns.calls = 0
+
+
+def reference_sums(indptr, indices, data, slot, scale, n_cols: int) -> tuple[np.ndarray, int]:
+    """Each slot's sum of its CSR rows' scaled values: ``(sums, entries summed)``, ``sums`` of shape
+    ``(len(scale), n_cols)``.
+
+    Row ``r`` belongs to slot ``slot[r]`` (int32; a value outside
+    ``[0, len(scale))`` puts it in none, and it is not read).  A slot's rows
+    are summed in ascending order, each entry as ``x * scale[s]`` into one
+    accumulator a slot and column, in ``data``'s dtype (float64 for integer
+    data): with ``scale[s]`` the dtype's ``1 / rows``, the row is scipy's
+    ``X[rows].mean(axis=0)`` bit for bit (scipy 1.18 first sums a row's
+    float entries of one column, so a row that repeats a column id can
+    differ there in the last bits).  ``indices`` must be int32 and
+    ``data`` float32, float64 or integer, both read where they lie (neither
+    is converted or copied); ``indptr`` is taken as int64.  Runs one thread
+    a slot, at most ``torch.get_num_threads()``.  Raises ``IndexError`` if a
+    row range or a column id among the rows read lies out of bounds.
+    """
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices)
+    data = np.ascontiguousarray(data)
+    slot = np.ascontiguousarray(slot, dtype=np.int32)
+    if indices.dtype != np.int32 or indices.ndim != 1 or data.shape != indices.shape:
+        raise TypeError(f"indices must be 1-D int32 with data's shape, got {indices.dtype} {indices.shape} "
+                        f"beside {data.shape}")
+    if data.dtype not in _SUFFIX and data.dtype not in _F64_SOURCES:
+        raise TypeError(f"data must be float32, float64 or integer, got {data.dtype}")
+    n_rows = len(indptr) - 1
+    if n_rows < 0 or slot.shape != (n_rows,):
+        raise ValueError(f"slot must hold one entry a row: {slot.shape} for {max(n_rows, 0)} rows")
+    dtype = np.dtype(np.float32) if data.dtype == np.float32 else np.dtype(np.float64)
+    scale = np.ascontiguousarray(scale, dtype=dtype)
+    n_slots = len(scale)
+    out = np.empty((n_slots, int(n_cols)), dtype=dtype)
+    lib = library()
+    head = (indptr.ctypes.data_as(_I64P), indices.ctypes.data_as(_I32P), data.ctypes.data)
+    tail = (len(indices), n_rows, slot.ctypes.data_as(_I32P), n_slots, scale.ctypes.data, int(n_cols),
+            out.ctypes.data, max(1, min(n_slots, _threads())))
+    if dtype == np.float32:
+        n = lib.reference_sums_f32(*head, *tail)
+    else:
+        n = lib.reference_sums_f64(*head, _F64_SOURCES[data.dtype], *tail)
+    if n < 0:
+        raise IndexError(f"reference_sums: a row range or a column id lies outside {len(indices)} entries "
+                         f"of {int(n_cols)} columns")
+    reference_sums.calls += 1
+    return out, int(n)
+
+
+reference_sums.calls = 0
 
 
 def leiden_library() -> ctypes.CDLL:

@@ -6,7 +6,8 @@
 // the packer too); the dense packers zero each output row themselves, so
 // they can write into a reused (pinned) buffer instead of a fresh calloc'ed
 // one; f64 variants exist of the COO remap and the dense-to-CSR scan; and
-// the result pack's host assembly (mask_to_csr) is native here, numpy there.
+// the result pack's host assembly (mask_to_csr) and the reference means
+// (reference_sums) are native here, numpy and scipy there.
 //
 // Stages (reference: tl/_infercnv.py:115-137, 419 — the per-worker densify):
 //   pack_csr_*    CSR rows -> dense rows in the plan's packed column layout
@@ -19,6 +20,8 @@
 //                 offset (a popcount a row, a prefix sum, then a fill)
 //   count_in_columns  the nonzeros of a CSR range that lie in marked columns
 //                 (a batch's upload capacity when genes are left out)
+//   reference_sums_*  the reference categories' column means, one pass over
+//                 the caller's CSR rows (scipy's arithmetic, bit for bit)
 //
 // Rows are disjoint in every output, so the row loops need no
 // synchronisation.  `lut` maps a column of the expression matrix to its
@@ -28,6 +31,8 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
+#include <vector>
 
 #if defined(_OPENMP)
 #include <omp.h>
@@ -224,6 +229,74 @@ int64_t mask_to_csr(const uint64_t* mask_ptrs, const uint64_t* val_ptrs, const i
   return fault ? fault : indptr[rows] - indptr[0];
 }
 
+// Slot s's row of out (n_cols wide) gets the sum, over the rows r with
+// slot[r] == s in ascending order and their entries in storage order, of
+// A(x) * scale[s], in one accumulator of type A a slot and column that starts
+// at zero: scipy's (X[rows] * (1.0 / n)).sum(axis=0) for a CSR X, which sums
+// through a matrix-vector product in that order (scipy 1.18 first sums a
+// row's float entries of one column, so a repeated column id can differ
+// there in the last bits).  Integer values are first
+// made double and a row's entries of one column summed (scipy's mean converts
+// them with astype, which sums duplicates), exact below 2^53.  Reassociating
+// would change the bits, so the threads split the slots, never a slot's rows;
+// the build keeps x * scale and the add apart (-ffp-contract=off).  A row of
+// another slot is not read.  Returns the entries summed; -1 if a row's range
+// or a column id that it reads lies out of bounds (then out is undefined).
+template <typename T, typename A>
+int64_t reference_sums(const int64_t* indptr, const int32_t* indices, const T* data, int64_t nnz, int64_t n_rows,
+                       const int32_t* slot, int64_t n_slots, const A* scale, int64_t n_cols, A* out,
+                       int32_t n_threads) {
+  constexpr bool merge = std::is_integral<T>::value;
+  int64_t summed = 0;
+  int64_t bad = 0;
+#pragma omp parallel num_threads(n_threads) reduction(+ : summed, bad)
+  {
+    // integer values: a row's sum a column, and the row that last wrote it
+    std::vector<A> row_sum(merge ? n_cols : 0);
+    std::vector<int64_t> row_of(merge ? n_cols : 0, -1);
+    std::vector<int32_t> touched;
+#pragma omp for schedule(dynamic, 1)
+    for (int64_t s = 0; s < n_slots; ++s) {
+      A* acc = out + s * n_cols;
+      for (int64_t c = 0; c < n_cols; ++c) acc[c] = A(0);
+      const A k = scale[s];
+      for (int64_t r = 0; r < n_rows && !bad; ++r) {
+        if (slot[r] != s) continue;
+        const int64_t lo = indptr[r];
+        const int64_t hi = indptr[r + 1];
+        if (lo < 0 || lo > hi || hi > nnz) {
+          ++bad;
+          break;
+        }
+        for (int64_t j = lo; j < hi; ++j) {
+          const int32_t c = indices[j];
+          if (c < 0 || c >= n_cols) {
+            ++bad;
+            break;
+          }
+          if constexpr (merge) {
+            if (row_of[c] != r) {
+              row_of[c] = r;
+              row_sum[c] = static_cast<A>(data[j]);
+              touched.push_back(c);
+            } else {
+              row_sum[c] += static_cast<A>(data[j]);
+            }
+          } else {
+            acc[c] += static_cast<A>(data[j]) * k;
+          }
+        }
+        if constexpr (merge) {
+          for (const int32_t c : touched) acc[c] += row_sum[c] * k;
+          touched.clear();
+        }
+        summed += hi - lo;
+      }
+    }
+  }
+  return bad ? -1 : summed;
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,6 +383,35 @@ int64_t count_in_columns(const int32_t* indices, int64_t n, const uint8_t* keep,
     }
   }
   return bad ? -1 : kept;
+}
+
+int64_t reference_sums_f32(const int64_t* indptr, const int32_t* indices, const float* data, int64_t nnz,
+                           int64_t n_rows, const int32_t* slot, int64_t n_slots, const float* scale, int64_t n_cols,
+                           float* out, int32_t n_threads) {
+  return reference_sums(indptr, indices, data, nnz, n_rows, slot, n_slots, scale, n_cols, out, n_threads);
+}
+
+// `source` names data's type: 0 float64, 1-4 int8 / int16 / int32 / int64,
+// 5-8 uint8 / uint16 / uint32 / uint64; -2 for another code.
+int64_t reference_sums_f64(const int64_t* indptr, const int32_t* indices, const void* data, int32_t source,
+                           int64_t nnz, int64_t n_rows, const int32_t* slot, int64_t n_slots, const double* scale,
+                           int64_t n_cols, double* out, int32_t n_threads) {
+#define REFERENCE_SUMS(T)                                                                                   \
+  reference_sums(indptr, indices, static_cast<const T*>(data), nnz, n_rows, slot, n_slots, scale, n_cols, out, \
+                 n_threads)
+  switch (source) {
+    case 0: return REFERENCE_SUMS(double);
+    case 1: return REFERENCE_SUMS(int8_t);
+    case 2: return REFERENCE_SUMS(int16_t);
+    case 3: return REFERENCE_SUMS(int32_t);
+    case 4: return REFERENCE_SUMS(int64_t);
+    case 5: return REFERENCE_SUMS(uint8_t);
+    case 6: return REFERENCE_SUMS(uint16_t);
+    case 7: return REFERENCE_SUMS(uint32_t);
+    case 8: return REFERENCE_SUMS(uint64_t);
+    default: return -2;
+  }
+#undef REFERENCE_SUMS
 }
 
 }  // extern "C"

@@ -4,10 +4,11 @@
   activity, and the device's kernels and copies where CUDA is present) and
   writes a Chrome trace (``trace.json``, readable by Perfetto or
   ``chrome://tracing``) into a directory;
-* :func:`span` and :func:`count` — the program's own stage spans and
-  counters, recorded on every thread while :func:`trace` runs and written
-  into the same ``trace.json`` (category ``program_span``, a track of their
-  own for each thread) on the trace's clock; :data:`last_spans` keeps them;
+* :func:`span`, :func:`count` and :func:`tag` — the program's own stage
+  spans, their counters, and attrs set once a span is open, recorded on
+  every thread while :func:`trace` runs and written into the same
+  ``trace.json`` (category ``program_span``, a track of their own for each
+  thread) on the trace's clock; :data:`last_spans` keeps them;
 * :func:`annotate` — a named region on the trace's host timeline
   (``torch.profiler.record_function``);
 * ``INFERCNVPY_TPU_TRACE_DIR`` — when set, :func:`maybe_trace` (which
@@ -15,8 +16,13 @@
 
 ``tl.infercnv`` opens these spans (``tl/_infercnv.py``): the root
 ``infercnv`` (attrs ``cells``, ``genes``, ``devices``), then
-``infercnv.reference``, ``infercnv.subset`` (attrs ``genes_kept``,
-``genes_dropped``), ``infercnv.plan``,
+``infercnv.reference`` (attrs ``path``: ``"native"`` where the means came
+from the one native pass over the caller's CSR, ``native.reference_sums``,
+``"plain"`` where from scipy / numpy, and ``categories``: the distinct
+categories averaged, 1 for the mean over all cells; counter
+``reference_nnz``: the values the native pass summed, 0 on the plain path;
+none of them where the caller passes ``reference``), ``infercnv.subset``
+(attrs ``genes_kept``, ``genes_dropped``), ``infercnv.plan``,
 ``infercnv.setup`` (child ``infercnv.slots``), per batch ``infercnv.pack``
 and ``infercnv.h2d`` (on the packer thread where the batches are
 pipelined), ``infercnv.launch``, ``infercnv.d2h``, ``infercnv.csr``,
@@ -44,7 +50,8 @@ and ``umap`` (``tl.umap``, children ``umap.init``, the spectral start, and
 ``umap.epochs``, counter ``umap_edges``: the edges the epochs sample).
 
 With recording off (no :func:`trace` running), :func:`span` returns one
-shared no-op context after a single flag check, and :func:`count` returns.
+shared no-op context after a single flag check, and :func:`count` and
+:func:`tag` return.
 The stage clock of ``tl/_infercnv.py::_infercnv_compute`` (its ``stats``)
 times the same spans, serialized.
 """
@@ -61,7 +68,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 __all__ = [
-    "trace", "span", "count", "current", "annotate", "maybe_trace", "last_trace_dir", "last_spans", "Span",
+    "trace", "span", "count", "tag", "current", "annotate", "maybe_trace", "last_trace_dir", "last_spans", "Span",
     "TRACE_FILE", "SPAN_CATEGORY",
 ]
 
@@ -180,6 +187,15 @@ def count(name: str, n: int) -> None:
     if stack:
         counts = stack[-1].counts
         counts[name] = counts.get(name, 0) + n
+
+
+def tag(**attrs) -> None:
+    """Set ``attrs`` on the innermost span open on the calling thread: what a stage learns once it has begun."""
+    if not _recording:
+        return
+    stack = _stack()
+    if stack:
+        stack[-1].attrs.update(attrs)
 
 
 def _write_spans(path: Path, records: list) -> list[Span]:

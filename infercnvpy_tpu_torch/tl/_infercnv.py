@@ -163,7 +163,13 @@ def infercnv(
     blocks (its ``on``: ``"pack"``, ``"copies"``, ``"compute"`` or
     ``"memory"``), and the
     counters ``pinned_bytes``, ``h2d_bytes``, ``d2h_bytes``,
-    ``subset_copy_bytes``, ``csr_nnz`` and ``csr_copied_bytes``.
+    ``subset_copy_bytes``, ``reference_nnz``, ``csr_nnz`` and
+    ``csr_copied_bytes``.
+
+    The reference means of CSR input (float32, float64 or integer values,
+    int32 column ids) come from one native pass over the caller's arrays,
+    bit-equal to scipy's mean of each category's rows; other input takes
+    scipy or numpy.
 
     The genes are selected without a copy: the packers read the expression
     matrix in place through the kept genes' column positions.  Sparse input
@@ -1120,7 +1126,13 @@ def _get_reference(
     reference: np.ndarray | None,
     layer: str | None,
 ) -> np.ndarray:
-    """Reference-baseline extraction (behavior matches reference tl/_infercnv.py:359-408)."""
+    """Reference-baseline extraction (behavior matches reference tl/_infercnv.py:359-408).
+
+    The means are the plain :func:`_mean0` of each category's rows, bit for
+    bit; :func:`_slot_means` says which input takes one native pass for them.
+    The span open around the call gets the attrs ``path`` and ``categories``
+    and the counter ``reference_nnz`` (``profiling``).
+    """
     X = adata.X if layer is None else adata.layers[layer]
     if reference is None:
         if reference_key is None or reference_cat is None:
@@ -1128,15 +1140,15 @@ def _get_reference(
                 "No reference given — falling back to the mean over ALL cells as the baseline; "
                 "pass `reference` or `reference_key`+`reference_cat` for meaningful CNV calls."
             )
-            reference = _mean0(X)
+            reference = _slot_means(X, None, np.array([X.shape[0]]))
         else:
-            labels = np.asarray(adata.obs[reference_key].values)
             cats = np.array([reference_cat] if isinstance(reference_cat, str) else list(reference_cat))
+            slot, of_cat, counts = _reference_slots(adata.obs[reference_key], cats)
             # error text is observable API surface (reference tl/_infercnv.py:388-392)
-            absent = cats[~np.isin(cats, labels)]
+            absent = cats[counts[of_cat] == 0]
             if absent.size:
                 raise ValueError(f"Categories {absent} do not occur in `adata.obs[{reference_key!r}]`.")
-            reference = np.vstack([_mean0(X[labels == cat, :]) for cat in cats])
+            reference = _slot_means(X, slot, counts)[of_cat]
 
     reference = np.asarray(reference)
     if reference.ndim == 1:
@@ -1146,8 +1158,61 @@ def _get_reference(
     return reference
 
 
+def _reference_slots(labels: pd.Series, cats: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(slot, of_cat, counts)``: each cell's slot among the distinct ``cats`` (int32, -1 for none), the slot of
+    each of ``cats``, and each slot's cells.
+
+    A cell is in a category's slot where its label ``==`` the category, as
+    ``np.isin`` decides presence.  A categorical column maps the categories
+    to their codes (``get_indexer``), so its labels are never made into
+    objects; any other column compares its labels with each category.
+    """
+    distinct: dict = {}
+    of_cat = np.array([distinct.setdefault(c, len(distinct)) for c in cats.tolist()], dtype=np.intp)
+    if isinstance(labels.dtype, pd.CategoricalDtype):
+        pos = labels.cat.categories.get_indexer(list(distinct))
+        lut = np.full(len(labels.cat.categories) + 1, -1, dtype=np.int32)  # the last entry: code -1, no label
+        lut[pos[pos >= 0]] = np.flatnonzero(pos >= 0)
+        slot = lut[labels.cat.codes.to_numpy()]
+    else:
+        values = np.asarray(labels.values)
+        slot = np.full(len(values), -1, dtype=np.int32)
+        for s, cat in enumerate(distinct):
+            slot[values == cat] = s
+    return slot, of_cat, np.bincount(slot[slot >= 0], minlength=len(distinct))
+
+
+def _slot_means(X, slot: np.ndarray | None, counts: np.ndarray) -> np.ndarray:
+    """``(len(counts), genes)``: the column means of each slot's rows of ``X`` (``slot`` None: all rows, one slot).
+
+    CSR with float32, float64 or integer values and int32 column ids, and
+    rows in every slot, takes one native pass over the caller's arrays
+    (``native.reference_sums``, each term ``x * (1 / n)`` in the mean's
+    dtype, rows in ascending order): scipy's own arithmetic, so bit-equal to
+    :func:`_mean0` of the slot's rows.  Other input takes :func:`_mean0`.
+    (scipy 1.18 first sums a row's entries of one column, so where float
+    values repeat a column id in a row, its last bits can differ.)
+    """
+    data = X.data if sp.issparse(X) and X.format == "csr" else None
+    if data is None or X.indices.dtype != np.int32 or not data.dtype.isnative or not counts.all() \
+            or not (data.dtype in (np.float32, np.float64) or data.dtype.kind in "iu"):
+        profiling.tag(path="plain", categories=len(counts))
+        profiling.count("reference_nnz", 0)
+        if slot is None:
+            return _mean0(X)[np.newaxis, :]
+        return np.vstack([_mean0(X[slot == s, :]) for s in range(len(counts))])
+    profiling.tag(path="native", categories=len(counts))
+    dtype = np.float32 if data.dtype == np.float32 else np.float64
+    if slot is None:
+        slot = np.zeros(X.shape[0], dtype=np.int32)
+    sums, summed = native.reference_sums(X.indptr, X.indices, data, slot, (1.0 / counts).astype(dtype), X.shape[1])
+    profiling.count("reference_nnz", summed)
+    return sums
+
+
 def _mean0(X) -> np.ndarray:
-    """Column means as a 1-D float64 array for dense or sparse input."""
+    """Column means as a 1-D array, in the input's float dtype (float64 for integer input), for dense or sparse
+    input."""
     if sp.issparse(X):
         return np.asarray(X.mean(axis=0)).ravel()
     return np.asarray(np.mean(np.asarray(X), axis=0)).ravel()

@@ -290,7 +290,7 @@ CENSUS = {
          ("infercnv.launch", None, "main", "infercnv"): 3,
          ("infercnv.wait", "compute", "main", "infercnv.launch"): 3, ("infercnv.d2h", None, "main", "infercnv"): 3,
          ("infercnv.csr", None, "main", "infercnv"): 3, ("infercnv.stack", None, "main", "infercnv"): 1},
-        {"csr_copied_bytes": 0, "csr_nnz": 637, "d2h_bytes": 13248, "h2d_bytes": 18877248},
+        {"csr_copied_bytes": 0, "csr_nnz": 637, "d2h_bytes": 13248, "h2d_bytes": 18877248, "reference_nnz": 22668},
     ),
     "serialized": (
         {("infercnv.plan", None, "main", None): 1, ("infercnv.setup", None, "main", None): 1,
@@ -312,7 +312,7 @@ CENSUS = {
          ("infercnv.stack", None, "main", "infercnv"): 1, ("infercnv.gene_scatter", None, "main", "infercnv"): 1,
          ("infercnv.gene_reindex", None, "main", "infercnv"): 1},
         {"csr_copied_bytes": 4088, "csr_nnz": 206, "d2h_bytes": 4416, "gene_d2h_bytes": 40448,
-         "h2d_bytes": 6292416, "subset_copy_bytes": 840676},
+         "h2d_bytes": 6292416, "reference_nnz": 22668, "subset_copy_bytes": 840676},
     ),
     "two_devices": (
         {("infercnv", None, "main", None): 1, ("infercnv.reference", None, "main", "infercnv"): 1,
@@ -323,7 +323,7 @@ CENSUS = {
          ("infercnv.launch", None, "main", "infercnv"): 3,
          ("infercnv.wait", "compute", "main", "infercnv.launch"): 3, ("infercnv.d2h", None, "main", "infercnv"): 3,
          ("infercnv.csr", None, "main", "infercnv"): 3, ("infercnv.stack", None, "main", "infercnv"): 1},
-        {"csr_copied_bytes": 6056, "csr_nnz": 0, "d2h_bytes": 21120, "h2d_bytes": 710400},
+        {"csr_copied_bytes": 6056, "csr_nnz": 0, "d2h_bytes": 21120, "h2d_bytes": 710400, "reference_nnz": 22668},
     ),
 }
 
@@ -332,9 +332,15 @@ CENSUS = {
 def test_infercnv_span_census(tmp_path, case):
     """Each call opens the same spans, on the same threads under the same parents, with the same counter totals:
     three batches pipelined, the same three serialized by ``stats``, two of three resumed with gene values, and
-    two cell shards."""
-    shapes, counts = _census(_census_run(case, tmp_path))
+    two cell shards; the reference means come from the native pass over the reference category's values."""
+    spans = _census_run(case, tmp_path)
+    shapes, counts = _census(spans)
     assert (shapes, counts) == CENSUS[case]
+    adata = _dataset()
+    nnz = int(np.diff(adata.X.indptr)[adata.obs["cell_type"].to_numpy() == REF_CAT].sum())
+    reference = [(s.attrs, s.counts) for s in spans if s.name == "infercnv.reference"]
+    want = [({"path": "native", "categories": 1}, {"reference_nnz": nnz})] if case != "serialized" else []
+    assert reference == want
 
 
 def test_a_failed_batch_does_not_leave_the_packer_waiting(monkeypatch):
